@@ -1,0 +1,79 @@
+"""CostRegNet (4-level 3D U-Net, NCDHW) and the view-aggregation gate.
+
+Plain path of ``tandem_tpu/models/cost_reg.py`` (parity target
+cva_mvsnet/models/module.py:534-600): stride-2 encoder, except stride
+(1, 2, 2) and output_padding (0, 1, 1) at the deepest level when D == 4;
+ConvTranspose3d decoder with skip additions; a 3x3x3 single-channel logit
+conv without bias.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from .layers import BN_EPS, ConvBnRelu, DeconvBnRelu
+
+
+class CostRegNet(nn.Module):
+    def __init__(self, in_channels: int, base_channels: int = 8,
+                 has_four_depths: bool = False):
+        super().__init__()
+        b = base_channels
+        s5 = (1, 2, 2) if has_four_depths else 2
+        op5 = (0, 1, 1) if has_four_depths else 1
+        kw = dict(ndim=3, padding=1)
+        self.conv0 = ConvBnRelu(in_channels, b, 3, **kw)
+        self.conv1 = ConvBnRelu(b, 2 * b, 3, stride=2, **kw)
+        self.conv2 = ConvBnRelu(2 * b, 2 * b, 3, **kw)
+        self.conv3 = ConvBnRelu(2 * b, 4 * b, 3, stride=2, **kw)
+        self.conv4 = ConvBnRelu(4 * b, 4 * b, 3, **kw)
+        self.conv5 = ConvBnRelu(4 * b, 8 * b, 3, stride=s5, **kw)
+        self.conv6 = ConvBnRelu(8 * b, 8 * b, 3, **kw)
+        self.conv7 = DeconvBnRelu(8 * b, 4 * b, stride=s5,
+                                  output_padding=op5)
+        self.conv9 = DeconvBnRelu(4 * b, 2 * b)
+        self.conv11 = DeconvBnRelu(2 * b, b)
+        self.prob = nn.Conv3d(b, 1, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        """:param x: (B, C, D, H, W) cost volume -> logits (B, D, H, W)"""
+        conv0 = self.conv0(x)
+        conv2 = self.conv2(self.conv1(conv0))
+        conv4 = self.conv4(self.conv3(conv2))
+        x = self.conv6(self.conv5(conv4))
+        x = conv4 + self.conv7(x)
+        x = conv2 + self.conv9(x)
+        x = conv0 + self.conv11(x)
+        return self.prob(x)[:, 0]
+
+
+class VolumeGate(nn.Sequential):
+    """Self-adaptive view-aggregation gate: Conv3d(C->1, 1x1x1)+BN+ReLU then
+    Conv3d(1->1, 1x1x1)+BN+ReLU (cva_mvsnet/models/cva_mvsnet.py:76-83).
+
+    The parameters sit in the reference's Sequential layout (keys 0, 1, 3,
+    4); the eval forward is the C-contraction plus scalar affine maps of
+    ``tandem_tpu``'s VolumeGate eval path, on channels-last input, so the
+    cost volume never leaves its (B, D, H, W, C) layout per view."""
+
+    def __init__(self, channels: int):
+        super().__init__(
+            nn.Conv3d(channels, 1, 1, bias=True),
+            nn.BatchNorm3d(1, eps=BN_EPS), nn.ReLU(),
+            nn.Conv3d(1, 1, 1, bias=True),
+            nn.BatchNorm3d(1, eps=BN_EPS), nn.ReLU())
+
+    @staticmethod
+    def _bn(y, bn: nn.BatchNorm3d):
+        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+        return y * inv + (bn.bias - bn.running_mean * inv)
+
+    def forward(self, x):
+        """:param x: (B, D, H, W, C) -> (B, D, H, W)"""
+        c0, bn0, _, c1, bn1, _ = self
+        y = F.linear(x, c0.weight.reshape(1, -1), c0.bias)[..., 0]
+        y = F.relu(self._bn(y, bn0))
+        y = y * c1.weight.reshape(()) + c1.bias
+        return F.relu(self._bn(y, bn1))

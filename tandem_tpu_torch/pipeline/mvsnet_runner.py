@@ -1,0 +1,135 @@
+"""CVA-MVSNet inference runner: the dr_mvsnet equivalent.
+
+Port of ``MvsnetRunner`` ("mono" mode) from
+``tandem_tpu/pipeline/mvsnet_runner.py``. The reference runs a TorchScript
+trace on a worker thread and its own CUDA stream behind an async
+CallAsync/GetResult protocol (tandem/libdr/dr_mvsnet/src/dr_mvsnet.cpp:
+20-120,285-331). Here ``call_async`` enqueues the cascade and the edge
+filter on a dedicated ``torch.cuda.Stream`` and records an event;
+``device_ready`` polls it and ``get_result`` hands the outputs over to the
+caller's stream. On the CPU the call runs synchronously.
+
+Input packing parity (dr_mvsnet.cpp:180-250):
+- views reordered ref-first: [ref, others in original order], ref = V - 2
+- BGR uint8 -> RGB float / 255
+- per-stage intrinsics by naive 0.25x/0.5x scaling (core/camera.py)
+- call-order protocol asserts (dr_mvsnet.cpp:100-107,315-318).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.camera import stage_intrinsics_runtime
+from ..models.convert import flax_to_state_dict
+from ..models.cva_mvsnet import CvaMVSNet
+from ..models.edge_filter import depth_filter_edges
+
+
+class MvsnetRunner:
+    """Fixed-shape CVA-MVSNet inference with async dispatch."""
+
+    def __init__(self, model: CvaMVSNet, variables: dict, height: int,
+                 width: int, view_num: int = 7, device="cpu"):
+        """:param variables: the JAX package's numpy parameter tree
+        ({'params', 'batch_stats'}), e.g. ``models.convert.load_variables``
+        of an exported unit."""
+        self.device = torch.device(device)
+        self.height, self.width, self.view_num = height, width, view_num
+        model.load_state_dict(flax_to_state_dict(
+            variables, view_aggregation=model.view_aggregation))
+        self.model = model.to(self.device).eval()
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._event = None
+        self._pending = None
+        self._ready = True
+
+    # --- packing ---------------------------------------------------------
+    @staticmethod
+    def reorder_ref_first(items: Sequence, ref_index: int) -> list:
+        return [items[ref_index]] + [x for i, x in enumerate(items)
+                                     if i != ref_index]
+
+    def pack_inputs(self, bgrs: Sequence[np.ndarray],
+                    cam_to_worlds: Sequence[np.ndarray], K: np.ndarray,
+                    ref_index: Optional[int] = None):
+        """bgrs: V arrays (H, W, 3) uint8 BGR; cam_to_worlds: V (4, 4).
+        Returns numpy (1, V, 3, H, W) float RGB in [0, 1], 3 x (1, 3, 3)
+        stage intrinsics and (1, V, 4, 4) poses, reference view first."""
+        assert len(bgrs) == self.view_num
+        ref_index = self.view_num - 2 if ref_index is None else ref_index
+        bgrs = self.reorder_ref_first(list(bgrs), ref_index)
+        poses = self.reorder_ref_first(list(cam_to_worlds), ref_index)
+        rgb = np.stack([np.asarray(b, np.uint8)[..., ::-1] for b in bgrs])
+        image = (rgb.astype(np.float32) / 255.0).transpose(0, 3, 1, 2)[None]
+        Ks = tuple(k[None] for k in
+                   stage_intrinsics_runtime(np.asarray(K, np.float32)))
+        c2w = np.stack(poses)[None].astype(np.float32)
+        return np.ascontiguousarray(image), Ks, c2w
+
+    # --- async protocol --------------------------------------------------
+    def ready(self) -> bool:
+        return self._ready
+
+    def device_ready(self) -> bool:
+        """True when the pending call (if any) has finished on the device,
+        i.e. get_result() would not block (the occupancy signal behind the
+        reference's Ready(), dr_mvsnet.cpp:100-107)."""
+        return self._event is None or self._event.query()
+
+    def _run(self, image, Ks, c2w, depth_min, depth_max, discard):
+        dev = self.device
+        out = self.model(torch.from_numpy(image).to(dev, non_blocking=True),
+                         [torch.from_numpy(k).to(dev) for k in Ks],
+                         torch.from_numpy(c2w).to(dev),
+                         torch.full((1,), depth_min, device=dev),
+                         torch.full((1,), depth_max, device=dev))
+        depth, conf = out.stage3.depth, out.stage3.confidence
+        # The edge filter is a pure post-pass (cva_mvsnet.py:165-177); the
+        # discard share stays on the host so the threshold rank needs no
+        # device sync.
+        fdepth, mask = depth_filter_edges(depth, torch.full((1,), discard))
+        fconf = torch.where(mask, torch.zeros_like(conf), conf)
+        return fdepth, fconf, depth, conf
+
+    def call_async(self, bgrs, cam_to_worlds, K, depth_min: float,
+                   depth_max: float, discard_percentage: float = 10.0,
+                   ref_index: Optional[int] = None):
+        assert self._ready, "CallAsync called before previous GetResult"
+        self._ready = False
+        args = self.pack_inputs(bgrs, cam_to_worlds, K, ref_index)
+        if self._stream is None:
+            self._pending = self._run(*args, depth_min, depth_max,
+                                      discard_percentage)
+            return
+        self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self._stream):
+            self._pending = self._run(*args, depth_min, depth_max,
+                                      discard_percentage)
+            self._event = torch.cuda.Event()
+            self._event.record(self._stream)
+
+    def get_result(self, device: bool = False):
+        """Stage-3 depth/confidence (+ dense variants) of the pending call.
+        With device=True the tensors stay on the device and are handed to
+        the caller's current stream without a host sync; otherwise this
+        blocks and returns numpy arrays."""
+        assert not self._ready, "GetResult called before CallAsync"
+        tensors = self._pending
+        if self._event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(self._event)
+            for x in tensors:
+                x.record_stream(cur)
+        conv = (lambda x: x) if device else (lambda x: x.cpu().numpy())
+        result = {k: conv(x[0]) for k, x in zip(
+            ("depth", "confidence", "depth_dense", "confidence_dense"),
+            tensors)}
+        self._pending = None
+        self._event = None
+        self._ready = True
+        return result

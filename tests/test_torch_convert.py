@@ -1,0 +1,46 @@
+"""models/convert.py: flax tree -> torch state_dict is the exact inverse of
+the JAX package's torch -> flax converter, on both shipped units."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+
+from tandem_tpu.models.torch_convert import convert_state_dict
+from tandem_tpu_torch.models.convert import flax_to_state_dict, load_variables
+from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+UNITS = ["tandem", "tandem_512x320"]
+
+
+def _assert_trees_equal(a, b, path=""):
+    assert set(a) == set(b), (path, sorted(set(a) ^ set(b)))
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_trees_equal(a[k], b[k], f"{path}/{k}")
+        else:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]),
+                                          err_msg=f"{path}/{k}")
+
+
+@pytest.mark.parametrize("name", UNITS)
+def test_flax_to_torch_to_flax_is_identity(name):
+    variables = load_variables(
+        os.path.join(REPO, "exported", name, "model_variables.pkl"))
+    sd = flax_to_state_dict(variables)
+    back = convert_state_dict({k: v.numpy() for k, v in sd.items()},
+                              view_aggregation=True)
+    _assert_trees_equal(back, variables)
+
+
+@pytest.mark.parametrize("name", UNITS)
+def test_state_dict_loads_strictly(name):
+    unit = os.path.join(REPO, "exported", name)
+    with open(os.path.join(unit, "model_config.json")) as f:
+        model = CvaMVSNet(**json.load(f))
+    sd = flax_to_state_dict(load_variables(
+        os.path.join(unit, "model_variables.pkl")))
+    model.load_state_dict(sd, strict=True)
+    assert set(model.state_dict()) == set(sd)
