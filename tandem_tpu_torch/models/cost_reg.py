@@ -4,7 +4,8 @@ Plain path of ``tandem_tpu/models/cost_reg.py`` (parity target
 cva_mvsnet/models/module.py:534-600): stride-2 encoder, except stride
 (1, 2, 2) and output_padding (0, 1, 1) at the deepest level when D == 4;
 ConvTranspose3d decoder with skip additions; a 3x3x3 single-channel logit
-conv without bias.
+conv without bias. Both modules compute in their ``dtype`` (float32 or
+bfloat16) from the float32 parameters, as the JAX modules do.
 """
 
 from __future__ import annotations
@@ -13,17 +14,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BN_EPS, ConvBnRelu, DeconvBnRelu
+from .layers import BN_EPS, ConvBnRelu, DeconvBnRelu, conv_in, fold_bn
 
 
 class CostRegNet(nn.Module):
     def __init__(self, in_channels: int, base_channels: int = 8,
-                 has_four_depths: bool = False):
+                 has_four_depths: bool = False, dtype=torch.float32):
         super().__init__()
         b = base_channels
         s5 = (1, 2, 2) if has_four_depths else 2
         op5 = (0, 1, 1) if has_four_depths else 1
-        kw = dict(ndim=3, padding=1)
+        self.dtype = dtype
+        kw = dict(ndim=3, padding=1, dtype=dtype)
         self.conv0 = ConvBnRelu(in_channels, b, 3, **kw)
         self.conv1 = ConvBnRelu(b, 2 * b, 3, stride=2, **kw)
         self.conv2 = ConvBnRelu(2 * b, 2 * b, 3, **kw)
@@ -32,13 +34,14 @@ class CostRegNet(nn.Module):
         self.conv5 = ConvBnRelu(4 * b, 8 * b, 3, stride=s5, **kw)
         self.conv6 = ConvBnRelu(8 * b, 8 * b, 3, **kw)
         self.conv7 = DeconvBnRelu(8 * b, 4 * b, stride=s5,
-                                  output_padding=op5)
-        self.conv9 = DeconvBnRelu(4 * b, 2 * b)
-        self.conv11 = DeconvBnRelu(2 * b, b)
+                                  output_padding=op5, dtype=dtype)
+        self.conv9 = DeconvBnRelu(4 * b, 2 * b, dtype=dtype)
+        self.conv11 = DeconvBnRelu(2 * b, b, dtype=dtype)
         self.prob = nn.Conv3d(b, 1, 3, padding=1, bias=False)
 
     def forward(self, x):
-        """:param x: (B, C, D, H, W) cost volume -> logits (B, D, H, W)"""
+        """:param x: (B, C, D, H, W) cost volume -> logits (B, D, H, W) in
+        dtype"""
         conv0 = self.conv0(x)
         conv2 = self.conv2(self.conv1(conv0))
         conv4 = self.conv4(self.conv3(conv2))
@@ -46,7 +49,7 @@ class CostRegNet(nn.Module):
         x = conv4 + self.conv7(x)
         x = conv2 + self.conv9(x)
         x = conv0 + self.conv11(x)
-        return self.prob(x)[:, 0]
+        return conv_in(self.prob, x, self.dtype)[:, 0]
 
 
 class VolumeGate(nn.Sequential):
@@ -58,22 +61,24 @@ class VolumeGate(nn.Sequential):
     ``tandem_tpu``'s VolumeGate eval path, on channels-last input, so the
     cost volume never leaves its (B, D, H, W, C) layout per view."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype=torch.float32):
         super().__init__(
             nn.Conv3d(channels, 1, 1, bias=True),
             nn.BatchNorm3d(1, eps=BN_EPS), nn.ReLU(),
             nn.Conv3d(1, 1, 1, bias=True),
             nn.BatchNorm3d(1, eps=BN_EPS), nn.ReLU())
-
-    @staticmethod
-    def _bn(y, bn: nn.BatchNorm3d):
-        inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
-        return y * inv + (bn.bias - bn.running_mean * inv)
+        self.dtype = dtype
 
     def forward(self, x):
-        """:param x: (B, D, H, W, C) -> (B, D, H, W)"""
+        """:param x: (B, D, H, W, C) -> (B, D, H, W) in dtype (JAX
+        cost_reg.py:111-121: weights and biases cast to the compute dtype,
+        BatchNorm folded)"""
         c0, bn0, _, c1, bn1, _ = self
-        y = F.linear(x, c0.weight.reshape(1, -1), c0.bias)[..., 0]
-        y = F.relu(self._bn(y, bn0))
-        y = y * c1.weight.reshape(()) + c1.bias
-        return F.relu(self._bn(y, bn1))
+        dt = self.dtype
+        y = F.linear(x.to(dt), c0.weight.to(dt).reshape(1, -1),
+                     c0.bias.to(dt))[..., 0]
+        inv0, off0 = fold_bn(bn0, dt)                       # (1,) each
+        inv1, off1 = fold_bn(bn1, dt)
+        y = F.relu(y * inv0 + off0)
+        y = y * c1.weight.to(dt).reshape(()) + c1.bias.to(dt)
+        return F.relu(y * inv1 + off1)

@@ -9,10 +9,15 @@ reference view first, depth_min/depth_max (B,), optional
 depth_filter_discard_percentage (B,). Module names follow the reference so
 ``models/convert.py``'s state_dict loads as is.
 
-Precision: f32 throughout. Constructing the model pins cuDNN convolutions
-and CUDA matmuls to full f32 (no TF32) for the whole process; the TF32
-default would cost the golden parity (the same trap as the TPU's default
-matmul precision).
+Precision: ``dtype`` float32 (the default) or bfloat16, the JAX package's
+deployed dtype (cli/tandem_dataset.py:97-98), with the JAX cast points:
+features, cost volume, gate and U-Net in ``dtype``; projections, depth
+hypotheses, the upsampled depth, softmax and depth regression in float32;
+every output float32. The bfloat16 model loads the same float32
+state_dict and casts where the weights are used. Constructing the model
+pins cuDNN convolutions and CUDA matmuls to full f32 (no TF32) for the
+whole process; the TF32 default would cost the f32 golden parity (the same
+trap as the TPU's default matmul precision).
 """
 
 from __future__ import annotations
@@ -56,24 +61,28 @@ class CvaMVSNet(nn.Module):
                  depth_interval_ratio: Tuple[float, ...] = (1.0, 0.5, 0.25),
                  feature_net_base_channels: int = 8,
                  cost_volume_base_channels: Tuple[int, ...] = (8, 8, 8),
-                 view_aggregation: bool = False):
+                 view_aggregation: bool = False, dtype=torch.float32):
         super().__init__()
         if len(depth_num) != 3 or depth_interval_ratio[0] != 1.0:
             raise ValueError("CvaMVSNet needs 3 stages and ratio[0] == 1")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"CvaMVSNet dtype {dtype}: float32 or bfloat16")
         pin_f32_precision()
+        self.dtype = dtype
         self.depth_num = tuple(depth_num)
         self.depth_interval_ratio = tuple(depth_interval_ratio)
         self.view_aggregation = view_aggregation
         self.scale = {s: 2 ** (2 - i) for i, s in enumerate(STAGES)}
-        self.feature_net = FeatureNet(feature_net_base_channels)
+        self.feature_net = FeatureNet(feature_net_base_channels, dtype)
         fc = self.feature_net.out_channels
         self.cost_regularization_net = nn.ModuleDict({
             s: CostRegNet(fc[s], cost_volume_base_channels[i],
-                          has_four_depths=self.depth_num[i] == 4)
+                          has_four_depths=self.depth_num[i] == 4,
+                          dtype=dtype)
             for i, s in enumerate(STAGES)})
         if view_aggregation:
             self.volume_gates = nn.ModuleDict(
-                {s: VolumeGate(fc[s]) for s in STAGES})
+                {s: VolumeGate(fc[s], dtype) for s in STAGES})
 
     @torch.no_grad()
     def forward(self, image, intrinsic_matrix: Sequence[torch.Tensor],
@@ -130,7 +139,7 @@ class CvaMVSNet(nn.Module):
         :return: depth (B, H, W), confidence (B, H, W)
         """
         B, V, H, W, C = features.shape
-        ref_volume = features[:, 0, None]                  # (B, 1, H, W, C)
+        ref_volume = features[:, 0, None].to(self.dtype)   # (B, 1, H, W, C)
         ref_c2w = cam_to_world[:, 0]
         # Views are accumulated one at a time: a per-view (B, D, H, W, C)
         # volume is never stacked (118 MB each at stage 1, 640x480).
@@ -140,6 +149,7 @@ class CvaMVSNet(nn.Module):
                 features[:, v], depth_in, src_K=K,
                 src_cam_to_world=cam_to_world[:, v], ref_K=K,
                 ref_cam_to_world=ref_c2w)
+            warped = warped.to(self.dtype)
             if gate is not None:
                 diff_sq = (warped - ref_volume) ** 2
                 term = (gate(diff_sq)[..., None] + 1.0) * diff_sq

@@ -7,6 +7,13 @@ own ``ConvTranspose3d`` with output_padding. The JAX package's folded,
 patched and banded conv layouts are TPU layout tricks with the same math;
 they have no counterpart here. The modules are inference modules: callers
 keep them in eval mode.
+
+Compute dtype (float32 or bfloat16, the JAX package's ``dtype``): the
+parameters stay float32 (one copy, the converted state_dict) and are cast
+to the compute dtype where they are used; convolutions run in that dtype
+(cuDNN accumulates in float32). Eval BatchNorm is the folded form of JAX
+``_EvalFoldedBN``: scale and offset computed in float32 on the (C,)
+vectors, cast to the compute dtype, applied as ``x * inv + off``.
 """
 
 from __future__ import annotations
@@ -18,11 +25,33 @@ import torch.nn.functional as F
 BN_EPS = 1e-5
 
 
+def fold_bn(bn: nn.modules.batchnorm._BatchNorm, dtype):
+    """Eval BatchNorm as a per-channel (inv, off) pair in ``dtype``."""
+    inv = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    off = bn.bias - bn.running_mean * inv
+    return inv.to(dtype), off.to(dtype)
+
+
+def apply_bn(x, bn, dtype):
+    """Folded eval BatchNorm on channel axis 1 of x."""
+    inv, off = fold_bn(bn, dtype)
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    return x * inv.reshape(shape) + off.reshape(shape)
+
+
+def conv_in(conv, x, dtype):
+    """Run torch conv module ``conv`` on x with input, weight and bias cast
+    to ``dtype``."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return conv._conv_forward(x.to(dtype), conv.weight.to(dtype), bias)
+
+
 class ConvBnRelu(nn.Module):
     """Conv (2D or 3D) without bias + eval BatchNorm + optional ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, ndim: int = 2,
-                 stride=1, padding=0, relu: bool = True):
+                 stride=1, padding=0, relu: bool = True,
+                 dtype=torch.float32):
         super().__init__()
         conv = nn.Conv2d if ndim == 2 else nn.Conv3d
         bn = nn.BatchNorm2d if ndim == 2 else nn.BatchNorm3d
@@ -30,9 +59,10 @@ class ConvBnRelu(nn.Module):
                          padding=padding, bias=False)
         self.bn = bn(out_ch, eps=BN_EPS)
         self.relu = relu
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        x = apply_bn(conv_in(self.conv, x, self.dtype), self.bn, self.dtype)
         return F.relu(x) if self.relu else x
 
 
@@ -40,7 +70,7 @@ class DeconvBnRelu(nn.Module):
     """torch ConvTranspose3d (kernel 3, padding 1) + BatchNorm + ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, stride=2, output_padding=1,
-                 relu: bool = True):
+                 relu: bool = True, dtype=torch.float32):
         super().__init__()
         self.conv = nn.ConvTranspose3d(in_ch, out_ch, 3, stride=stride,
                                        padding=1,
@@ -48,9 +78,13 @@ class DeconvBnRelu(nn.Module):
                                        bias=False)
         self.bn = nn.BatchNorm3d(out_ch, eps=BN_EPS)
         self.relu = relu
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.bn(self.conv(x))
+        c = self.conv
+        x = F.conv_transpose3d(x.to(self.dtype), c.weight.to(self.dtype),
+                               None, c.stride, c.padding, c.output_padding)
+        x = apply_bn(x, self.bn, self.dtype)
         return F.relu(x) if self.relu else x
 
 

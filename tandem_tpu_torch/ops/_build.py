@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (sm_90a) into one
+Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (sm_90a), one nvcc
+process per source, all started together; the objects are linked into one
 shared library with a plain C interface, loaded with ctypes. The library
 lands in ``tandem_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
 and flags, at first use: nothing is built when a module is imported, and no
-binary is committed.
+binary is committed. ptxas's register and spill report of the build is kept
+beside the library as ``ptxas.log``.
 """
 
 from __future__ import annotations
@@ -22,13 +24,19 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_c_int, _c_ptr = ctypes.c_int, ctypes.c_void_p
+_c_int, _c_i64, _c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 # Exported C entry points: name -> argtypes (every one returns a CUDA error
-# code as int).
+# code as int and takes the stream last).
 SIGNATURES = {
     "tandem_edge_kth": [_c_ptr, _c_ptr, _c_int, _c_int, _c_int, _c_ptr],
+    "tandem_bilinear_index": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_int,
+                              _c_int, _c_ptr, _c_ptr, _c_int, _c_ptr],
+    "tandem_corner_blend": [_c_ptr, _c_ptr, _c_ptr, _c_i64, _c_i64, _c_int,
+                            _c_int, _c_int, _c_ptr, _c_ptr],
+    "tandem_row_gather": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_int,
+                          _c_ptr, _c_ptr],
 }
 
 
@@ -43,10 +51,13 @@ def _nvcc() -> str:
                        "need the CUDA toolkit (set CUDA_HOME)")
 
 
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
 def library_path() -> Path:
-    sources = sorted(CSRC_DIR.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libtandem_kernels.so"
@@ -59,15 +70,32 @@ def build() -> float:
     if out.exists():
         return 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC_DIR.glob("*.cu")))]
+    nvcc, tag = _nvcc(), os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed, report = [], []
+    for cmd, _, proc in jobs:
+        stdout, stderr = proc.communicate()
+        report.append(stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = out.with_suffix(f".{tag}.tmp")
+    link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)]
+    res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{' '.join(link)}\n{res.stdout}\n{res.stderr}")
+    (out.parent / "ptxas.log").write_text("".join(report))
     os.replace(tmp, out)
+    for _, obj, _ in jobs:
+        obj.unlink()
     return time.perf_counter() - t0
 
 
@@ -81,3 +109,15 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` on ``device``'s current
+    stream (appended as the last argument); raise if the launch failed."""
+    import torch
+    lib = kernels()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")

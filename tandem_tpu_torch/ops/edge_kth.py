@@ -41,19 +41,14 @@ def edge_kth_value(depth):
                          f"tensor, got {tuple(depth.shape)} {depth.dtype}")
     if not depth.is_contiguous():
         raise ValueError("edge_kth_value: depth must be contiguous")
-    from ._build import kernels
+    from ._build import launch
 
     B, H, W = depth.shape
     out = torch.empty_like(depth)
     if depth.numel() == 0:
         return out
-    lib = kernels()
-    with torch.cuda.device(depth.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.tandem_edge_kth(depth.data_ptr(), out.data_ptr(), B, H, W,
-                                 stream)
-    if rc != 0:
-        raise RuntimeError(f"edge_kth kernel launch failed: CUDA error {rc}")
+    launch("tandem_edge_kth", depth.device, depth.data_ptr(), out.data_ptr(),
+           B, H, W)
     edge_kth_value.launches += 1
     return out
 

@@ -7,13 +7,20 @@ K_src [R|t]_src^-1 . ([R|t]_ref K_ref^-1) and sample the source features
 bilinearly. Projections behind the source camera (z < min_depth_thres)
 contribute zero, and the division uses z clamped away from 0 at 1e-12 —
 the reference produces NaN there and zeroes it afterwards; both give zero.
+
+Positions and ``mask_valid`` are float32 torch code. The sample is the
+JAX package's ``_plain`` path (warp.py:118-157): kernel P5 turns the
+positions into packed-corner rows (batch folded into the row index) and
+weights cast to the features' dtype, kernel P3 reads and blends the rows
+(``ops/grid_sample.sample_packed``). ``plane_group`` and its grouped patch
+gather are a TPU gather-throughput trick and have no counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .grid_sample import bilinear_corners, sample_corners
+from .grid_sample import sample_packed
 from .linalg import invert_pixel_projection
 
 
@@ -40,7 +47,8 @@ def plane_sweep_warp(src_features, ref_depth, *, src_K, src_cam_to_world,
     :param ref_depth: (B, D, H, W) depth hypotheses in the reference frame
     :param src_K, ref_K: (B, 3, 3)
     :param src_cam_to_world, ref_cam_to_world: (B, 4, 4)
-    :return: warped (B, D, H, W, C), mask_valid (B, D, H, W) same dtype
+    :return: warped (B, D, H, W, C), mask_valid (B, D, H, W), both of
+        src_features' dtype
     """
     B, H, W, C = src_features.shape
     f32 = torch.float32
@@ -78,6 +86,5 @@ def plane_sweep_warp(src_features, ref_depth, *, src_K, src_cam_to_world,
                     | (y_norm.abs() > 1.0 + 1.0 / (H - 1)))
     mask_valid = ~(mask_negative | mask_outside)
 
-    xi, yi, weights = bilinear_corners(px, py, H, W, keep=~mask_negative)
-    warped = sample_corners(src_features, xi, yi, weights)
+    warped = sample_packed(src_features, px, py, keep=~mask_negative)
     return warped, mask_valid.to(src_features.dtype)

@@ -8,7 +8,9 @@ map at the next tracking reference pose and hand it to the coarse tracker
 through the double-buffered ``TrackingDepthMap`` (the A/B swap under a
 mutex, tandem_backend.cpp:93-96,183-190).
 
-Integrate and render walk every allocated block; the frustum- and
+The MVSNet runs in the runner's dtype (float32 or bfloat16); the depth it
+fuses is float32 either way. Integrate and render walk every allocated
+block; the frustum- and
 surface-culled variants of the JAX package are exact equivalents left for
 a later port, as is mesh extraction (``mesh_extraction_freq`` must be 0).
 """

@@ -14,6 +14,10 @@ Input packing parity (dr_mvsnet.cpp:180-250):
 - BGR uint8 -> RGB float / 255
 - per-stage intrinsics by naive 0.25x/0.5x scaling (core/camera.py)
 - call-order protocol asserts (dr_mvsnet.cpp:100-107,315-318).
+
+The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
+float32, or bfloat16 as the JAX runtime deploys it); the depth and
+confidence it hands on are float32 in both.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class MvsnetRunner:
         model.load_state_dict(flax_to_state_dict(
             variables, view_aggregation=model.view_aggregation))
         self.model = model.to(self.device).eval()
+        self.dtype = model.dtype
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._event = None

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels have no CPU
-mode. They skip without a card. This file imports no JAX, so it also runs
+mode. They skip without a card. Every kernel is held exactly
+(torch.equal) against its plain PyTorch version on the card. This file imports no JAX, so it also runs
 where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -10,7 +11,13 @@ import pytest
 import torch
 
 from tandem_tpu_torch.models.edge_filter import depth_filter_edges
+from tandem_tpu_torch.models.layers import DeconvBnRelu
+from tandem_tpu_torch.ops.bilinear_index import (bilinear_index,
+                                                 bilinear_index_plain)
+from tandem_tpu_torch.ops.corner_blend import corner_blend, corner_blend_plain
 from tandem_tpu_torch.ops.edge_kth import edge_kth_plain, edge_kth_value
+from tandem_tpu_torch.ops.grid_sample import pack_corners
+from tandem_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -60,3 +67,134 @@ def test_depth_filter_edges_card_equals_cpu(dev):
     fd_g, m_g = depth_filter_edges(depth.to(dev), discard)
     assert torch.equal(m_g.cpu(), m_c)
     assert torch.equal(fd_g.cpu(), fd_c)
+
+
+# --- P5 bilinear_index, P3 corner_blend, row_gather (P1/P2/P4) -------------
+
+DTYPES = [torch.float32, torch.bfloat16]
+B, H, W = 2, 37, 53   # odd sizes, two images in one table
+
+
+def _positions(seed: int = 5):
+    """Positions over the image and past both pad edges, with exact pad-edge
+    cells (x0 = -1 and x0 = W - 1, likewise in y) and integer positions."""
+    rng = np.random.RandomState(seed)
+    x = rng.uniform(-3.0, W + 2.0, (B, 3, H, W)).astype(np.float32)
+    y = rng.uniform(-3.0, H + 2.0, (B, 3, H, W)).astype(np.float32)
+    x[:, 0, :, :8] = rng.uniform(-1.0, 0.0, (B, H, 8))
+    x[:, 0, :, 8:16] = rng.uniform(W - 1.0, W, (B, H, 8))
+    y[:, 1, :4] = rng.uniform(-1.0, 0.0, (B, 4, W))
+    y[:, 1, 4:8] = rng.uniform(H - 1.0, H, (B, 4, W))
+    x[:, 2, :, :6] = np.arange(-1, 5)
+    keep = rng.rand(B, 3, H, W) < 0.8
+    return x, y, keep
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_bilinear_index_kernel_equals_plain(dev, dtype, masked):
+    x, y, keep = (torch.from_numpy(a).to(dev) for a in _positions())
+    args = (x, y, H, W, keep if masked else None, B, dtype)
+    before = bilinear_index.launches
+    rows, w = bilinear_index(*args)
+    torch.cuda.synchronize()
+    assert bilinear_index.launches == before + 1
+    rows_p, w_p = bilinear_index_plain(*args)
+    assert rows.dtype == torch.int32 and w.shape == (4, *x.shape)
+    assert torch.equal(rows, rows_p)
+    assert torch.equal(w, w_p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 32])
+def test_corner_blend_kernel_equals_plain(dev, dtype, C):
+    """C = 1, 3 take the scalar path; 8-32 the vector loads of the stage
+    widths (64 B rows at stage 3 in bf16 up to 512 B at stage 1 in f32)."""
+    x, y, keep = (torch.from_numpy(a).to(dev) for a in _positions())
+    rows, w = bilinear_index(x, y, H, W, keep, B, dtype)
+    feat = torch.from_numpy(np.random.RandomState(C).randn(
+        B, H, W, C).astype(np.float32)).to(dev, dtype)
+    table = pack_corners(feat).reshape(-1, 4 * C)
+    before = corner_blend.launches
+    out = corner_blend(table, rows.reshape(-1), w.reshape(4, -1))
+    torch.cuda.synchronize()
+    assert corner_blend.launches == before + 1
+    assert out.dtype == dtype and out.shape == (rows.numel(), C)
+    assert torch.equal(out, corner_blend_plain(table, rows.reshape(-1),
+                                               w.reshape(4, -1)))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [1, 3, 8, 33, 64, 128])
+def test_row_gather_kernel_equals_plain(dev, dtype, width):
+    rng = np.random.RandomState(width)
+    tbl = torch.from_numpy(rng.randn(1001, width).astype(np.float32)).to(
+        dev, dtype)
+    idx = torch.from_numpy(rng.randint(0, 1001, 4099).astype(np.int32)).to(
+        dev)
+    before = row_gather.launches
+    out = row_gather(tbl, idx)
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(out, row_gather_plain(tbl, idx))
+
+
+def test_sample_kernels_reject_bad_input(dev):
+    x = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError):                      # positions dtype
+        bilinear_index(x.double(), x.double(), 4, 4)
+    with pytest.raises(ValueError):                      # non-contiguous
+        bilinear_index(x.t(), x.t(), 4, 4)
+    with pytest.raises(ValueError):                      # weight dtype
+        bilinear_index(x, x, 4, 4, dtype=torch.float16)
+    table = torch.zeros((10, 8), device=dev)
+    rows = torch.zeros(6, dtype=torch.int32, device=dev)
+    w = torch.zeros((4, 6), device=dev)
+    with pytest.raises(ValueError):                      # weights vs table
+        corner_blend(table, rows, w.bfloat16())
+    with pytest.raises(ValueError):                      # table dtype
+        corner_blend(table.double(), rows, w.double())
+    with pytest.raises(ValueError):                      # int64 rows
+        corner_blend(table, rows.long(), w)
+    with pytest.raises(ValueError):                      # non-contiguous
+        corner_blend(torch.zeros((8, 10), device=dev).t(), rows, w)
+    with pytest.raises(ValueError):
+        row_gather(table, rows.long())
+    with pytest.raises(ValueError):
+        row_gather(torch.zeros((8, 10), device=dev).t(), rows)
+    with pytest.raises(ValueError):
+        row_gather(table.half(), rows)
+
+
+def test_deconv_bf16_matches_f32_cast_down(dev):
+    """bf16 cuDNN ConvTranspose3d at the four-depth stages' stride (1, 2, 2)
+    and output_padding (0, 1, 1) against the f32 layer on the same bf16
+    input, cast down: within 2 bf16 ulps of the output's largest value."""
+    torch.manual_seed(0)
+    f32 = DeconvBnRelu(32, 16, stride=(1, 2, 2),
+                       output_padding=(0, 1, 1)).eval()
+    with torch.no_grad():
+        f32.bn.running_mean.uniform_(-0.1, 0.1)
+        f32.bn.running_var.uniform_(0.5, 1.5)
+    bf = DeconvBnRelu(32, 16, stride=(1, 2, 2), output_padding=(0, 1, 1),
+                      dtype=torch.bfloat16).eval()
+    bf.load_state_dict(f32.state_dict())
+    f32, bf = f32.to(dev), bf.to(dev)
+    x = torch.randn((1, 32, 4, 30, 40), device=dev).bfloat16()
+    with torch.no_grad():
+        ref = f32(x.float())
+        out = bf(x)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 16, 4, 60, 80)
+    err = (out.float() - ref.bfloat16().float()).abs().max()
+    assert err <= 2 * 2.0 ** -8 * ref.abs().max()
+
+
+def test_probes_run_on_card(dev):
+    """The three probe entry points at reduced sizes (chip_smoke runs them
+    at the JAX probes' shapes)."""
+    from tandem_tpu_torch.experiments import (gather_probe, idxchain_probe,
+                                              shuffle_probe)
+    res = gather_probe.main(sizes=(4096,), m=5000, iters=5)
+    assert set(res) == {"row_gather", "corner_blend"}
+    assert len(shuffle_probe.main(m=3000, lanes=(16, 64), g=2, iters=5)) == 2
+    assert len(idxchain_probe.main(n=128 * 64, iters=5)) == 2

@@ -28,6 +28,7 @@ from tandem_tpu.models.ranges import (adaptive_depth_range as j_adaptive,
                                       uniform_depth_range as j_uniform)
 from tandem_tpu.ops.warp import plane_sweep_warp as j_warp
 from tandem_tpu_torch.models.convert import flax_to_state_dict, load_variables
+from tandem_tpu_torch.models.cost_reg import VolumeGate
 from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
 from tandem_tpu_torch.models.ranges import (adaptive_depth_range,
                                             uniform_depth_range)
@@ -132,13 +133,30 @@ def test_cost_reg_net(models, stage, four):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
+def live_gate(variables, tm, dtype=torch.float32):
+    """The stage-1 gate's JAX variables and a port VolumeGate with the same
+    weights, except that both flip the sign of the second 1x1 conv: in
+    this weight draw it is negative, which makes the gate identically zero
+    after its ReLUs and any comparison vacuous."""
+    gv = _sub(variables, "volume_gate_stage1")
+    gv = {"batch_stats": gv["batch_stats"], "params": {
+        **gv["params"], "gate1": {**gv["params"]["gate1"],
+                                  "kernel": -gv["params"]["gate1"]["kernel"]}}}
+    gate = VolumeGate(32, dtype).eval()
+    gate.load_state_dict(tm.volume_gates["stage1"].state_dict())
+    with torch.no_grad():
+        gate[3].weight.neg_()
+    return gv, gate
+
+
 def test_volume_gate(models):
     _, variables, tm = models
+    gate_vars, gate = live_gate(variables, tm)
     x = np.random.RandomState(2).rand(1, 8, 16, 24, 32).astype(np.float32)
-    ref = JVolumeGate().apply(_sub(variables, "volume_gate_stage1"),
-                              jnp.asarray(x))
+    ref = JVolumeGate().apply(gate_vars, jnp.asarray(x))
     with torch.no_grad():
-        out = tm.volume_gates["stage1"](torch.from_numpy(x))
+        out = gate(torch.from_numpy(x))
+    assert (np.asarray(ref) > 0).mean() > 0.2
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 
 
