@@ -1,9 +1,9 @@
 """TSDF fusion: block-paged dense voxel grid, integrate and splat render.
 
-Port of the full-walk paths of ``tandem_tpu/mapping/tsdf.py`` (reference
-tandem/libdr/dr_fusion/src/tsdfvh/). The reference's voxel hash becomes a
-dense int32 page table over quantized block coordinates plus a flat pool of
-8^3-voxel blocks:
+Port of ``tandem_tpu/mapping/tsdf.py`` (reference
+tandem/libdr/dr_fusion/src/tsdfvh/), full-walk and culled paths. The
+reference's voxel hash becomes a dense int32 page table over quantized
+block coordinates plus a flat pool of 8^3-voxel blocks:
 
 - allocate_blocks: the truncation band around the depth surface, sampled on
   a strided pixel grid, deduplicated with ``torch.unique`` and appended to
@@ -13,16 +13,21 @@ dense int32 page table over quantized block coordinates plus a flat pool of
   every allocated slot; nearest-pixel projection (round half to even, as
   jnp.round), euclidean ray distances, the weighted sdf/colour mean with
   the weight clamped at max_weight, sdf = surface - voxel in the band and
-  +truncation in free space.
+  +truncation in free space. ``integrate_culled`` does the same over the
+  slots of ``visible_slots`` (the reference's per-entry frustum early-out).
 - render_depth_splat: per (block, axis, column) the nearest-to-camera sdf
   zero crossing, found by linear interpolation (crossings that straddle a
   block face read the +axis neighbour's first slice), projected into a
   z-buffer with ``scatter_reduce(amin)``; then 2 rounds of 3x3 hole fill.
+  It walks every block, the frustum-culled ``visible_slots`` or, per axis,
+  the surface-culled ``surface_axis_slots``; the culled paths are exact
+  equivalents of the full walk.
 
 Everything is float32; the JAX package's f16 split-precision packs are TPU
 gather tricks. Updates happen IN PLACE: ``allocate_blocks``, ``integrate``
 and ``grow_volume`` mutate the volume's tensors and return the volume (this
-replaces the JAX package's buffer donation).
+replaces the JAX package's buffer donation); a culled integrate gathers
+the visible blocks' rows and scatters them back by slot.
 """
 
 from __future__ import annotations
@@ -185,51 +190,207 @@ def integrate(cfg: TsdfConfig, vol: TsdfVolume, depth, color, K,
     :param depth: (H, W); color: (H, W, 3) float [0, 255] RGB; K: (3, 3);
         cam_to_world: (4, 4)
     """
-    H, W = depth.shape
-    dev = depth.device
-    R, t = _world_to_cam(cam_to_world)
-    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
-    # Per-pixel ray norm |K^-1 (u, v, 1)|: surface_dist = d * norm.
-    ru = (torch.arange(W, dtype=torch.float32, device=dev)[None, :] - cx) / fx
-    rv = (torch.arange(H, dtype=torch.float32, device=dev)[:, None] - cy) / fy
-    ray_norm = torch.sqrt(ru * ru + rv * rv + 1.0).reshape(-1)
-    depth_f = depth.reshape(-1)
-    color_f = color.reshape(-1, 3)
-    trunc = cfg.truncation
-
+    scan = _Scan(depth, color, K, cam_to_world)
     for start in range(0, vol.n_allocated, CHUNK):
-        sl = slice(start, min(start + CHUNK, vol.n_allocated))
-        wx, wy, wz = _voxel_world(cfg, vol.block_coords[sl], dev)
-        xc = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
-        yc = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
-        z = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
-        z_safe = torch.where(z <= 1e-6, torch.ones_like(z), z)
-        u = torch.round(fx * xc / z_safe + cx).to(torch.int64)
-        v = torch.round(fy * yc / z_safe + cy).to(torch.int64)
-        in_img = (z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
-        pix = torch.where(in_img, v * W + u, torch.zeros_like(u))
-        d_px = depth_f[pix]
-        d_ok = (d_px > 0) & (d_px >= cfg.min_depth) & (d_px < cfg.max_depth)
-        surface_dist = d_px * ray_norm[pix]
-        voxel_dist = torch.sqrt(xc * xc + yc * yc + z * z)
-        in_band = ((voxel_dist > surface_dist - trunc)
-                   & (voxel_dist < surface_dist + trunc))
-        in_free = voxel_dist < surface_dist - trunc
-        update = in_img & d_ok & (in_band | in_free)
-        sdf_new = torch.where(in_band, surface_dist - voxel_dist,
-                              torch.full_like(z, trunc))
-
-        tsdf_c, weight_c, color_c = vol.tsdf[sl], vol.weight[sl], vol.color[sl]
-        denom = weight_c + 1.0
-        vol.tsdf[sl] = torch.where(update, (tsdf_c * weight_c + sdf_new)
-                                   / denom, tsdf_c)
-        vol.color[sl] = torch.where(
-            update[..., None],
-            (color_c * weight_c[..., None] + color_f[pix]) / denom[..., None],
-            color_c)
-        vol.weight[sl] = torch.where(
-            update, torch.clamp(denom, max=cfg.max_weight), weight_c)
+        _integrate_rows(cfg, vol, scan,
+                        slice(start, min(start + CHUNK, vol.n_allocated)))
     return vol
+
+
+def integrate_culled(cfg: TsdfConfig, vol: TsdfVolume, depth, color, K,
+                     cam_to_world, slots, n_visible: int) -> TsdfVolume:
+    """``integrate`` over the frustum-culled slot list of ``visible_slots``
+    (in place): the rows of the visible blocks are gathered by slot,
+    updated and scattered back, so the cost scales with the visible
+    surface. Equal to ``integrate`` exactly (the per-voxel arithmetic is the
+    same, and a culled block cannot be updated, see ``visible_slots``).
+
+    :param n_visible: host count of the visible slots
+    """
+    scan = _Scan(depth, color, K, cam_to_world)
+    for start in range(0, n_visible, CHUNK):
+        _integrate_rows(cfg, vol, scan,
+                        slots[start:min(start + CHUNK, n_visible)])
+    return vol
+
+
+class _Scan:
+    """One scan flattened for the voxel lookups, with the world-to-camera
+    transform and the per-pixel ray norm |K^-1 (u, v, 1)| (surface_dist =
+    d * norm)."""
+
+    def __init__(self, depth, color, K, cam_to_world):
+        H, W = depth.shape
+        dev = depth.device
+        self.H, self.W = H, W
+        self.R, self.t = _world_to_cam(cam_to_world)
+        self.fx, self.fy, self.cx, self.cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+        ru = (torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+              - self.cx) / self.fx
+        rv = (torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+              - self.cy) / self.fy
+        self.ray_norm = torch.sqrt(ru * ru + rv * rv + 1.0).reshape(-1)
+        self.depth = depth.reshape(-1)
+        self.color = color.reshape(-1, 3)
+
+
+def _integrate_rows(cfg: TsdfConfig, vol: TsdfVolume, scan: _Scan, rows):
+    """Update the blocks ``rows`` (a slice, or a tensor of slots) in place."""
+    R, t, H, W = scan.R, scan.t, scan.H, scan.W
+    trunc = cfg.truncation
+    wx, wy, wz = _voxel_world(cfg, vol.block_coords[rows], vol.tsdf.device)
+    xc = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
+    yc = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
+    z = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
+    z_safe = torch.where(z <= 1e-6, torch.ones_like(z), z)
+    u = torch.round(scan.fx * xc / z_safe + scan.cx).to(torch.int64)
+    v = torch.round(scan.fy * yc / z_safe + scan.cy).to(torch.int64)
+    in_img = (z > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    pix = torch.where(in_img, v * W + u, torch.zeros_like(u))
+    d_px = scan.depth[pix]
+    d_ok = (d_px > 0) & (d_px >= cfg.min_depth) & (d_px < cfg.max_depth)
+    surface_dist = d_px * scan.ray_norm[pix]
+    voxel_dist = torch.sqrt(xc * xc + yc * yc + z * z)
+    in_band = ((voxel_dist > surface_dist - trunc)
+               & (voxel_dist < surface_dist + trunc))
+    in_free = voxel_dist < surface_dist - trunc
+    update = in_img & d_ok & (in_band | in_free)
+    sdf_new = torch.where(in_band, surface_dist - voxel_dist,
+                          torch.full_like(z, trunc))
+
+    tsdf_c, weight_c, color_c = vol.tsdf[rows], vol.weight[rows], \
+        vol.color[rows]
+    denom = weight_c + 1.0
+    vol.tsdf[rows] = torch.where(update, (tsdf_c * weight_c + sdf_new)
+                                 / denom, tsdf_c)
+    vol.color[rows] = torch.where(
+        update[..., None],
+        (color_c * weight_c[..., None] + scan.color[pix]) / denom[..., None],
+        color_c)
+    vol.weight[rows] = torch.where(
+        update, torch.clamp(denom, max=cfg.max_weight), weight_c)
+
+
+def _frustum_mask(cfg: TsdfConfig, K, cam_to_world, height: int, width: int,
+                  block_coords):
+    """Conservative per-block frustum test over (N, 3) block coordinates:
+    True for every block that holds a voxel that ``integrate`` can update
+    or whose surface points can land in the image (the proof is in the JAX
+    package's ``visible_slots``). The block's bounding ball (radius r)
+    around its centre is tested:
+
+    - far plane: z - r < max_depth + truncation;
+    - image, with the exact first-order margin per axis
+      m_u = (fx + |u - cx|) r / (z - r), which carries the obliquity term;
+    - near-camera rescue for balls that reach the camera plane: keep if
+      |centre| <= (z + r) * ray_norm_max + r.
+    """
+    centers = (block_coords.float() + 0.5) * cfg.block_extent
+    R, t = _world_to_cam(cam_to_world)
+    cam = centers @ R.T + t                               # (N, 3)
+    r = cfg.block_extent * (3.0 ** 0.5) / 2.0             # bounding radius
+    z = cam[:, 2]
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    z_safe = torch.clamp(z, min=1e-3)
+    u = fx * cam[:, 0] / z_safe + cx
+    v = fy * cam[:, 1] / z_safe + cy
+    zr = torch.clamp(z - r, min=1e-3)
+    m_u = (fx + torch.abs(u - cx)) * r / zr
+    m_v = (fy + torch.abs(v - cy)) * r / zr
+    in_depth = z - r < cfg.max_depth + cfg.truncation
+    # integrate rounds: u_f in [-0.5, W-0.5) lands on a pixel.
+    in_img = ((u + m_u >= -0.5) & (u - m_u <= width - 0.5)
+              & (v + m_v >= -0.5) & (v - m_v <= height - 0.5))
+    # ray_norm_max over the image: max |([-0.5, W-0.5] - cx) / fx| etc.
+    tu = (torch.maximum(cx, width - 1 - cx) + 0.5) / fx
+    tv = (torch.maximum(cy, height - 1 - cy) + 0.5) / fy
+    norm_max = torch.sqrt(1.0 + tu * tu + tv * tv)
+    near = ((z - r <= 0) & (z + r > 0)
+            & (torch.sqrt(torch.sum(cam * cam, -1))
+               <= (z + r) * norm_max + r))
+    return near | ((z - r > 0) & in_depth & in_img)
+
+
+def _compact(keep, sentinel: int):
+    """Indices of the True entries of ``keep`` (N,), compacted to the front
+    of an (N,) int64 tensor padded with ``sentinel``, and their count (a
+    0-dim tensor: no host sync)."""
+    n = keep.shape[0]
+    rank = torch.cumsum(keep.long(), 0) - 1
+    dst = torch.where(keep, rank, torch.full_like(rank, n))
+    out = torch.full((n + 1,), sentinel, dtype=torch.long,
+                     device=keep.device)
+    out.scatter_(0, dst, torch.arange(n, device=keep.device))
+    return out[:n], keep.sum()
+
+
+def visible_slots(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
+                  height: int, width: int):
+    """Frustum-cull the allocated blocks for one camera (the reference's
+    IntegrateScanKernel per-entry frustum early-out, tsdf_volume.cu:436-).
+
+    :return: (slots, n_visible): slots (n_allocated,) int64 with the visible
+        pool slots compacted to the front and cfg.pool_size padding;
+        n_visible a 0-dim int64 tensor (read it with one host sync).
+    """
+    n = vol.n_allocated
+    vis = _frustum_mask(cfg, K, cam_to_world, height, width,
+                        vol.block_coords[:n])
+    return _compact(vis, cfg.pool_size)
+
+
+def surface_axis_slots(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
+                       height: int, width: int):
+    """Per-axis surface + frustum cull for the splat render camera.
+
+    A (block, axis) pair can emit a surface point only if some column of
+    that axis in the block holds valid voxels of both signs, or the block
+    and its +axis neighbour hold valid voxels of opposite signs in the same
+    column (a face-straddling crossing); and the block passes the frustum
+    test. Pairs that fail cannot change the z-buffer, so the axis-culled
+    render equals the full walk exactly. Must run after this keyframe's
+    integrate: the flags read the fused sdf.
+
+    :return: (slots3, counts3): slots3 (3, n_allocated) int64, per axis the
+        kept slots compacted to the front with cfg.pool_size padding;
+        counts3 (3,) int64 (read with one host sync).
+    """
+    b = cfg.block_size
+    n = vol.n_allocated
+    tsdf_p, weight_p = vol.tsdf[:n], vol.weight[:n]
+    coords_p = vol.block_coords[:n]
+    valid = weight_p > 0
+    view = (n, b, b, b)                                   # (block, z, y, x)
+    vp_v = (valid & (tsdf_p >= 0)).reshape(view)
+    vn_v = (valid & (tsdf_p <= 0)).reshape(view)
+    vis = _frustum_mask(cfg, K, cam_to_world, height, width, coords_p)
+
+    slots3, counts3 = [], []
+    # Per axis: the in-block column test, plus a column-exact face term
+    # against the +axis neighbour's first slice.
+    for axis, dim, lp, ln, fp, fn in (
+            (0, 3, vp_v[..., b - 1], vn_v[..., b - 1],
+             vp_v[..., 0], vn_v[..., 0]),
+            (1, 2, vp_v[:, :, b - 1, :], vn_v[:, :, b - 1, :],
+             vp_v[:, :, 0, :], vn_v[:, :, 0, :]),
+            (2, 1, vp_v[:, b - 1], vn_v[:, b - 1],
+             vp_v[:, 0], vn_v[:, 0])):
+        col_cross = vp_v.any(dim) & vn_v.any(dim)
+        flag = col_cross.reshape(n, b * b).any(1)
+        nb_block = coords_p.clone()
+        nb_block[:, axis] += 1
+        flat_tab, in_arena = _table_index(cfg, nb_block)
+        nb_slot = vol.page_table[flat_tab].long()
+        nb_ok = (nb_slot >= 0) & in_arena
+        safe = torch.where(nb_ok, nb_slot, torch.zeros_like(nb_slot))
+        fp_c, fn_c = fp.reshape(n, b * b), fn.reshape(n, b * b)
+        lp_c, ln_c = lp.reshape(n, b * b), ln.reshape(n, b * b)
+        face = ((lp_c & fn_c[safe]) | (ln_c & fp_c[safe])).any(1)
+        slots, count = _compact(vis & (flag | (nb_ok & face)),
+                                cfg.pool_size)
+        slots3.append(slots)
+        counts3.append(count)
+    return torch.stack(slots3), torch.stack(counts3)
 
 
 # Per world axis a: the (chunk, z, y, x) view dim of a, and for the 64
@@ -244,8 +405,9 @@ def _axis_layout(axis: int, b: int, dev):
 
 
 def _splat_axis_candidates(cfg: TsdfConfig, vol: TsdfVolume, K, R, t,
-                           sl: slice, H: int, W: int, axis: int):
-    """Candidate surface points of the blocks in ``sl`` along ONE axis: per
+                           rows, H: int, W: int, axis: int):
+    """Candidate surface points of the blocks ``rows`` (a slice, or a tensor
+    of slots) along ONE axis: per
     column, the nearest-to-camera valid sdf sign change, interpolated
     linearly. Returns (flat pixel index, z) for (chunk * b * b) columns,
     flat == H*W where the column has no valid crossing."""
@@ -254,8 +416,8 @@ def _splat_axis_candidates(cfg: TsdfConfig, vol: TsdfVolume, K, R, t,
     vs = cfg.voxel_size
     dev = vol.tsdf.device
     (dim, face_li, col_o1, col_o2), o1, o2 = _axis_layout(axis, b, dev)
-    coords = vol.block_coords[sl]
-    tsdf_c, weight_c = vol.tsdf[sl], vol.weight[sl]
+    coords = vol.block_coords[rows]
+    tsdf_c, weight_c = vol.tsdf[rows], vol.weight[rows]
     chunk = coords.shape[0]
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
 
@@ -324,20 +486,38 @@ def _splat_axis_candidates(cfg: TsdfConfig, vol: TsdfVolume, K, R, t,
 
 
 def render_depth_splat(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
-                       H: int, W: int):
+                       H: int, W: int, slots=None, n_visible: int = None,
+                       axis_slots=None, axis_counts=None):
     """Render the model depth at ``cam_to_world`` by splatting per-column
-    sdf zero crossings into a z-buffer (occlusion = scatter min), walking
-    every allocated block, then filling holes. Returns (H, W) depth, 0
-    where empty."""
+    sdf zero crossings into a z-buffer (occlusion = scatter min), then
+    filling holes. Returns (H, W) depth, 0 where empty.
+
+    By default every allocated block is walked. ``slots``/``n_visible``
+    (``visible_slots`` at this camera) walk only the frustum-culled blocks;
+    ``axis_slots``/``axis_counts`` (``surface_axis_slots``, host counts)
+    splat each axis over only the blocks that can cross along it (the
+    backend's path). All three give the same depth exactly.
+    """
     R, t = _world_to_cam(cam_to_world)
     # One spare slot takes every column without a valid crossing.
     zbuf = torch.full((H * W + 1,), float("inf"), device=vol.tsdf.device)
-    for start in range(0, vol.n_allocated, CHUNK):
-        sl = slice(start, min(start + CHUNK, vol.n_allocated))
+
+    def splat(rows, axis):
+        flat, z = _splat_axis_candidates(cfg, vol, K, R, t, rows, H, W, axis)
+        zbuf.scatter_reduce_(0, flat, z, reduce="amin")
+
+    if axis_slots is not None:
         for axis in range(3):
-            flat, z = _splat_axis_candidates(cfg, vol, K, R, t, sl, H, W,
-                                             axis)
-            zbuf.scatter_reduce_(0, flat, z, reduce="amin")
+            c = int(axis_counts[axis])
+            for start in range(0, c, CHUNK):
+                splat(axis_slots[axis][start:min(start + CHUNK, c)], axis)
+    else:
+        n = vol.n_allocated if slots is None else n_visible
+        for start in range(0, n, CHUNK):
+            rows = (slice(start, min(start + CHUNK, n)) if slots is None
+                    else slots[start:min(start + CHUNK, n)])
+            for axis in range(3):
+                splat(rows, axis)
     depth = zbuf[:H * W].reshape(H, W)
     depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
     return _fill_holes(depth)

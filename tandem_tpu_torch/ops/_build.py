@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _c_int, _c_i64, _c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+_c_f32 = ctypes.c_float
 # Exported C entry points: name -> argtypes (every one returns a CUDA error
 # code as int and takes the stream last).
 SIGNATURES = {
@@ -37,6 +38,8 @@ SIGNATURES = {
                             _c_int, _c_int, _c_ptr, _c_ptr],
     "tandem_row_gather": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_int,
                           _c_ptr, _c_ptr],
+    "tandem_track_reduce": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
+                           + [_c_f32] * 6 + [_c_ptr, _c_int] + [_c_ptr] * 5,
 }
 
 

@@ -9,10 +9,12 @@ through the double-buffered ``TrackingDepthMap`` (the A/B swap under a
 mutex, tandem_backend.cpp:93-96,183-190).
 
 The MVSNet runs in the runner's dtype (float32 or bfloat16); the depth it
-fuses is float32 either way. Integrate and render walk every allocated
-block; the frustum- and
-surface-culled variants of the JAX package are exact equivalents left for
-a later port, as is mesh extraction (``mesh_extraction_freq`` must be 0).
+fuses is float32 either way. The fusion follows the JAX backend: integrate
+walks every allocated block when at least half of them are in the
+keyframe's frustum, else only the frustum-culled ones; the render at the
+next tracking reference splats, per axis, only the blocks whose surface can
+cross along that axis. Both culls are exact. Mesh extraction is not ported
+yet (``mesh_extraction_freq`` must be 0).
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ import numpy as np
 import torch
 
 from ..mapping.tsdf import (TsdfConfig, allocate_blocks, create_volume,
-                            grow_volume, integrate, render_depth_splat)
+                            grow_volume, integrate, integrate_culled,
+                            render_depth_splat, surface_axis_slots,
+                            visible_slots)
 from ..utils.timer import Timer
 
 
@@ -71,6 +75,7 @@ class TandemBackend:
         self._prev: Optional[dict] = None  # previous call's context
         self._n_drop_seen = 0     # pool-full allocation drops already handled
         self._pool_warned = False
+        self.last_fuse: dict = {}  # counts of the latest fusion
 
     def ready(self) -> bool:
         """Reference Ready() parity (tandem_backend.cpp:285-287): True when
@@ -106,6 +111,10 @@ class TandemBackend:
             np.asarray(self._prev["ref_c2w"], np.float32)).to(dev)
 
         self.volume = allocate_blocks(self.cfg, self.volume, depth, K, pose)
+        # n_allocated and n_dropped are host counts; n_vis is read once,
+        # after any growth (one host sync).
+        slots, n_vis = visible_slots(self.cfg, self.volume, K, pose, self.H,
+                                     self.W)
         # Pool exhaustion: the reference commits 10^6 blocks and aborts when
         # the heap runs dry (heap.cu:16-18); here the pool grows on demand
         # and the idempotent allocation picks up exactly the dropped blocks.
@@ -123,11 +132,31 @@ class TandemBackend:
             self.cfg, self.volume = grow_volume(self.cfg, self.volume)
             self.volume = allocate_blocks(self.cfg, self.volume, depth, K,
                                           pose)
-        self.volume = integrate(self.cfg, self.volume, depth, rgb, K, pose)
+            slots, n_vis = visible_slots(self.cfg, self.volume, K, pose,
+                                         self.H, self.W)
+        n_alloc, n_vis = self.volume.n_allocated, int(n_vis)
+        # The JAX backend's rule (kept for parity, not tuned for this
+        # card): the contiguous full walk when most of the map is in view,
+        # the slot gather/scatter of the culled walk otherwise.
+        culled = n_vis < 0.5 * n_alloc
+        if culled:
+            self.volume = integrate_culled(self.cfg, self.volume, depth, rgb,
+                                           K, pose, slots, n_vis)
+        else:
+            self.volume = integrate(self.cfg, self.volume, depth, rgb, K,
+                                    pose)
+        # The render cull reads the fused sdf, so it runs after integrate.
         pose_r = torch.from_numpy(
             np.asarray(next_ref_c2w, np.float32)).to(dev)
+        ax_slots, ax_counts = surface_axis_slots(self.cfg, self.volume, K,
+                                                 pose_r, self.H, self.W)
+        ax_counts = ax_counts.tolist()
         rdepth = render_depth_splat(self.cfg, self.volume, K, pose_r,
-                                    self.H, self.W)
+                                    self.H, self.W, axis_slots=ax_slots,
+                                    axis_counts=ax_counts)
+        self.last_fuse = {"n_allocated": n_alloc, "n_visible": n_vis,
+                          "culled_integrate": culled,
+                          "axis_counts": ax_counts}
         self.depth_map.write(rdepth, np.asarray(next_ref_c2w))
 
     def stats(self) -> dict:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..core.camera import stage_intrinsics_runtime
-from ..models.convert import flax_to_state_dict
+from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet
 from ..models.edge_filter import depth_filter_edges
 
@@ -43,7 +43,7 @@ class MvsnetRunner:
         of an exported unit."""
         self.device = torch.device(device)
         self.height, self.width, self.view_num = height, width, view_num
-        model.load_state_dict(flax_to_state_dict(
+        model.load_state_dict(convert.flax_to_state_dict(
             variables, view_aggregation=model.view_aggregation))
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype

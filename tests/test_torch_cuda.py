@@ -198,3 +198,135 @@ def test_probes_run_on_card(dev):
     assert set(res) == {"row_gather", "corner_blend"}
     assert len(shuffle_probe.main(m=3000, lanes=(16, 64), g=2, iters=5)) == 2
     assert len(idxchain_probe.main(n=128 * 64, iters=5)) == 2
+
+
+# --- K6 track_reduce, the culled TSDF paths --------------------------------
+
+def _k6_case(dev, N, B, H=61, W=83, seed=0):
+    from chip_smoke import _track_case
+    return _track_case(dev, N, B, H, W, seed)
+
+
+def _k6_check(case):
+    from chip_smoke import _double
+    from tandem_tpu_torch.ops.track_reduce import (track_reduce,
+                                                   track_reduce_plain)
+    before = track_reduce.launches
+    got = track_reduce(*case)
+    torch.cuda.synchronize()
+    assert track_reduce.launches == before + 1
+    f32 = track_reduce_plain(*case)
+    f64 = track_reduce_plain(*_double(*case))
+    assert torch.equal(got[1], f32[1])                     # num
+    for j in (0, 2, 3):                                    # energy, Hm, g
+        err = (got[j].double() - f64[j]).abs().max()
+        assert err <= 1e-4 * f64[j].abs().max().clamp_min(1e-30), j
+    return got
+
+
+@pytest.mark.parametrize("B", [1, 5, 15])
+@pytest.mark.parametrize("N", [1, 1000, 1025, 4097])
+def test_track_reduce_kernel_matches_f64(dev, B, N):
+    """Odd point counts leave ragged last blocks; within 1e-4 of the
+    largest |entry| of a float64 evaluation, num equal to the f32 plain."""
+    _k6_check(_k6_case(dev, N, B, seed=N + B))
+
+
+def test_track_reduce_kernel_empty_and_saturated(dev):
+    T, aff, pts, planes, K = _k6_case(dev, 2000, 5)
+    none = pts[:4] + (torch.zeros_like(pts[4]),)
+    e, n, Hm, g = _k6_check((T, aff, none, planes, K))
+    assert not (e.any() or n.any() or Hm.any() or g.any())
+    cut = aff.clone()
+    cut[:, 1] = 1000.0                      # every residual past the cutoff
+    e, n, Hm, g = _k6_check((T, cut, pts, planes, K))
+    assert torch.equal(e, n * 400.0) and bool((n > 0).all())
+    assert not (Hm.any() or g.any())
+
+
+def test_track_reduce_rejects_bad_input(dev):
+    from tandem_tpu_torch.ops.track_reduce import track_reduce
+    T, aff, pts, planes, K = _k6_case(dev, 300, 2)
+    with pytest.raises(ValueError):
+        track_reduce(T.double(), aff, pts, planes, K)
+    with pytest.raises(ValueError):
+        track_reduce(T, aff, pts[:4] + (pts[4].float(),), planes, K)
+    with pytest.raises(ValueError):
+        track_reduce(T, aff, pts, (planes[0].t(),) + planes[1:], K)
+    with pytest.raises(ValueError):
+        track_reduce(T, aff[:1], pts, planes, K)
+
+
+def test_track_frame_card_matches_cpu(dev):
+    """The whole tracker on the card against the CPU run (plain K6) on a
+    textured plane: poses within 1e-4."""
+    from tandem_tpu_torch.core.se3 import se3_exp
+    from tandem_tpu_torch.tracking.coarse_tracker import (make_tracker_ref,
+                                                          track_frame)
+    Hh, Ww, f = 96, 128, 90.0
+    cx, cy = (Ww - 1) / 2, (Hh - 1) / 2
+
+    def render(c2w):
+        u, v = np.meshgrid(np.arange(Ww, dtype=np.float64),
+                           np.arange(Hh, dtype=np.float64))
+        rays = np.stack([(u - cx) / f, (v - cy) / f, np.ones_like(u)], -1)
+        rays = rays @ c2w[:3, :3].T
+        s = (2.0 - c2w[2, 3]) / rays[..., 2]
+        p = c2w[:3, 3] + rays * s[..., None]
+        img = (120 + 50 * np.sin(2.1 * p[..., 0]) * np.cos(1.7 * p[..., 1])
+               + 30 * np.sin(5.3 * p[..., 0] + 1)
+               + 25 * np.cos(4.3 * p[..., 1] + 2))
+        return img.astype(np.float32), s.astype(np.float32)
+
+    ref_img, ref_depth = render(np.eye(4))
+    xi = torch.tensor([0.03, -0.01, 0.02, 0.008, -0.01, 0.005])
+    new_img, _ = render(se3_exp(xi).double().numpy())
+    out = []
+    for d in (torch.device("cpu"), dev):
+        ref = make_tracker_ref(torch.from_numpy(ref_img).to(d), f, f, cx, cy,
+                               sparse_idepth=torch.from_numpy(
+                                   1.0 / ref_depth).to(d),
+                               sparse_weight=torch.ones((Hh, Ww), device=d))
+        out.append(track_frame(ref, torch.from_numpy(new_img).to(d),
+                               torch.eye(4, device=d),
+                               torch.tensor([1.0, 0.0], device=d))["T"].cpu())
+    assert (out[0] - out[1]).abs().max() <= 1e-4
+
+
+def test_culled_tsdf_equals_full_on_card(dev):
+    """integrate_culled and the frustum- and axis-culled renders equal the
+    full walk exactly on the card (a curved surface, turned cameras)."""
+    from chip_smoke import _copy_volume
+    from tandem_tpu_torch.mapping import tsdf as tt
+    Hh, Ww = 60, 80
+    cfg = tt.TsdfConfig(voxel_size=0.02, table_dim=64, pool_size=4096,
+                        truncation=0.08, max_depth=8.0)
+    K = torch.tensor([[70.0, 0, (Ww - 1) / 2], [0, 70.0, (Hh - 1) / 2],
+                      [0, 0, 1]], device=dev)
+    u, v = np.meshgrid(np.arange(Ww), np.arange(Hh))
+    depth = torch.from_numpy((2.0 + 0.5 * np.sin(u * 0.15) * np.cos(
+        v * 0.12)).astype(np.float32)).to(dev)
+    color = torch.full((Hh, Ww, 3), 100.0, device=dev)
+    vol = tt.create_volume(cfg, dev)
+    eye = torch.eye(4, device=dev)
+    tt.allocate_blocks(cfg, vol, depth, K, eye)
+    tt.integrate(cfg, vol, depth, color, K, eye)
+    for deg in (0.0, 25.0, 50.0):
+        a = np.deg2rad(deg)
+        p = torch.eye(4, device=dev)
+        p[0, 0], p[0, 2], p[2, 0], p[2, 2] = (np.cos(a), np.sin(a),
+                                              -np.sin(a), np.cos(a))
+        slots, n_vis = tt.visible_slots(cfg, vol, K, p, Hh, Ww)
+        copies = [_copy_volume(vol) for _ in range(2)]
+        tt.integrate(cfg, copies[0], depth, color, K, p)
+        tt.integrate_culled(cfg, copies[1], depth, color, K, p, slots,
+                            int(n_vis))
+        for f in ("tsdf", "weight", "color"):
+            assert torch.equal(getattr(copies[0], f), getattr(copies[1], f))
+        s3, c3 = tt.surface_axis_slots(cfg, vol, K, p, Hh, Ww)
+        full = tt.render_depth_splat(cfg, vol, K, p, Hh, Ww)
+        assert torch.equal(full, tt.render_depth_splat(
+            cfg, vol, K, p, Hh, Ww, slots=slots, n_visible=int(n_vis)))
+        assert torch.equal(full, tt.render_depth_splat(
+            cfg, vol, K, p, Hh, Ww, axis_slots=s3, axis_counts=c3.tolist()))
+
