@@ -73,7 +73,9 @@ class TsdfVolume:
     n_dropped: int = 0          # cumulative pool-full allocation drops
 
 
-def create_volume(cfg: TsdfConfig, device="cpu") -> TsdfVolume:
+def create_volume(cfg: TsdfConfig, device="cuda") -> TsdfVolume:
+    """A zeroed volume on the card, or on ``device`` when the caller asks
+    (the CPU tests pass ``"cpu"``). Without a card the default raises."""
     p, b3 = cfg.pool_size, cfg.block_size ** 3
     return TsdfVolume(
         page_table=torch.full((cfg.table_dim ** 3,), -1, dtype=torch.int32,

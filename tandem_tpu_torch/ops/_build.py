@@ -1,12 +1,13 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Every ``csrc/*.cu`` file is compiled with nvcc for Hopper (sm_90a), one nvcc
-process per source, all started together; the objects are linked into one
-shared library with a plain C interface, loaded with ctypes. The library
-lands in ``tandem_tpu_torch/_build/<hash>/``, keyed by a hash of the sources
-and flags, at first use: nothing is built when a module is imported, and no
-binary is committed. ptxas's register and spill report of the build is kept
-beside the library as ``ptxas.log``.
+process per source, all started together (``csrc/*.cuh`` are headers they
+include); the objects are linked into one shared library with a plain C
+interface, loaded with ctypes. The library lands in
+``tandem_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and
+flags, at first use: nothing is built when a module is imported, and no
+binary is committed. ptxas's register and spill report of the build is
+kept beside the library as ``ptxas.log``.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ SIGNATURES = {
                           _c_ptr, _c_ptr],
     "tandem_track_reduce": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
                            + [_c_f32] * 6 + [_c_ptr, _c_int] + [_c_ptr] * 5,
+    "tandem_track_lm": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
+                       + [_c_f32] * 6 + [_c_ptr, _c_int, _c_ptr]
+                       + [_c_int] * 3 + [_c_ptr],
 }
 
 
@@ -60,7 +64,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC_DIR.glob("*.cu*")):      # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / h.hexdigest()[:16] / "libtandem_kernels.so"

@@ -72,8 +72,12 @@ def level_residuals(T, aff, pts, planes, Klvl):
     img, gx, gy = planes
     H, W = img.shape
     fx, fy, cx, cy = Klvl
-    un = (pu - cx) / fx
-    vn = (pv - cy) / fy
+    # Divide by tensors: on CUDA, a tensor divided by a Python number is a
+    # product with its rounded reciprocal, which can move a point across
+    # the border test by an ulp; the kernel and the CPU divide exactly.
+    f = torch.tensor([fx, fy], dtype=pu.dtype, device=pu.device)
+    un = (pu - cx) / f[0]
+    vn = (pv - cy) / f[1]
     R = T[:, :3, :3]
     t = T[:, :3, 3]
 
@@ -137,7 +141,9 @@ def track_reduce_plain(T, aff, pts, planes, Klvl):
     return e_pix.sum(-1), good.to(r.dtype).sum(-1), Hm, g
 
 
-def _check(T, aff, pts, planes):
+def check_inputs(fn: str, T, aff, pts, planes):
+    """Raise unless the tensors are what the kernels take (contiguous, f32
+    and bool, shapes that agree, all on T's device)."""
     dev = T.device
     B = T.shape[0]
     N = pts[0].shape[0]
@@ -155,7 +161,7 @@ def _check(T, aff, pts, planes):
             ("gy", planes[2], (H, W), torch.float32)):
         if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
                 or not t.is_contiguous()):
-            raise ValueError(f"track_reduce: {name} must be a contiguous "
+            raise ValueError(f"{fn}: {name} must be a contiguous "
                              f"{dtype} {shape} tensor on {dev}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
@@ -173,7 +179,7 @@ def track_reduce(T, aff, pts, planes, Klvl):
         return track_reduce_plain(T, aff, pts, planes, Klvl)
     if T.device.type != "cuda":
         raise ValueError(f"track_reduce: unsupported device {T.device}")
-    _check(T, aff, pts, planes)
+    check_inputs("track_reduce", T, aff, pts, planes)
     from ._build import launch
 
     B, N = T.shape[0], pts[0].shape[0]

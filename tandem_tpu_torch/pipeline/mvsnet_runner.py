@@ -37,10 +37,12 @@ class MvsnetRunner:
     """Fixed-shape CVA-MVSNet inference with async dispatch."""
 
     def __init__(self, model: CvaMVSNet, variables: dict, height: int,
-                 width: int, view_num: int = 7, device="cpu"):
+                 width: int, view_num: int = 7, device="cuda"):
         """:param variables: the JAX package's numpy parameter tree
         ({'params', 'batch_stats'}), e.g. ``models.convert.load_variables``
-        of an exported unit."""
+        of an exported unit.
+        :param device: the card by default; ``"cpu"`` only when asked (the
+            CPU tests). Without a card the default raises."""
         self.device = torch.device(device)
         self.height, self.width, self.view_num = height, width, view_num
         model.load_state_dict(convert.flax_to_state_dict(

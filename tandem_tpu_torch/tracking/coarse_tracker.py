@@ -8,7 +8,8 @@ list per pyramid level (DSO's pc_u/pc_v/pc_idepth/pc_color), compacted once
 per keyframe from the projected inverse-depth maps; every LM iteration
 evaluates the residuals and the 8x8 normal equations of one level's list
 for B candidate poses at once. That evaluation is kernel K6
-(``ops/track_reduce.py``, CUDA on the card).
+(``ops/track_reduce.py``, CUDA on the card); on the card a level's whole
+LM iteration is the ``track_lm`` kernel (``ops/track_lm.py``).
 
 Model: a ref pixel (x, y) with inverse depth id maps to the new frame via
 q = R K^-1 (x, y, 1) + t id, pixel' = K (q / qz); the photometric residual
@@ -20,11 +21,12 @@ into the reference keyframe with an occlusion-aware min-z splat and fills
 the pixels that have no sparse point (CoarseTracker.cpp:633-733).
 
 Differences from the JAX package, none of them in the arithmetic: the LM
-``lax.while_loop`` is a Python loop whose condition is read with one host
-sync per iteration; the new frame's level planes are read directly (the
-JAX package's 12-wide corner pack is a TPU gather trick); the fixed-size
-point lists are built with a scatter into a -1-filled buffer (no
-data-dependent ``nonzero``).
+``lax.while_loop`` is a fixed count of steps that do nothing once the loop's
+condition is false (on the card, kernel launches that read the condition
+from device memory; the host reads it every few steps); the new frame's
+level planes are read directly (the JAX package's 12-wide corner pack is a
+TPU gather trick); the fixed-size point lists are built with a scatter into
+a -1-filled buffer (no data-dependent ``nonzero``).
 """
 
 from __future__ import annotations
@@ -35,8 +37,7 @@ import numpy as np
 import torch
 
 from ..core.pyramid import build_pyramid, pyramid_intrinsics
-from ..core.se3 import se3_exp
-from ..ops.linalg import solve_gauss_jordan_batched
+from ..ops.track_lm import lm_level, lm_level_plain
 from ..ops.track_reduce import (CUTOFF_TH, HUBER_TH,  # noqa: F401
                                 level_residuals, normal_equations,
                                 track_reduce)
@@ -256,58 +257,24 @@ def _energy_and_system(T, aff, pts, planes, Klvl, tdist: bool = False):
     return (wf * r * r).sum(-1), good.float().sum(-1), Hm, g
 
 
-def _bwhere(cond, a, b):
-    """torch.where with a (B,)-shaped condition broadcast over trailing
-    dims."""
-    return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)), a, b)
+def _tdist_energy(T, aff, pts, planes, Klvl):
+    return _energy_and_system(T, aff, pts, planes, Klvl, tdist=True)
 
 
 def _lm_level(T, aff, pts, planes, Klvl, max_iter: int, tdist: bool = False):
-    """Batched LM on one level. T: (B, 4, 4), aff: (B, 2).
+    """Batched LM on one level (the JAX package's ``_lm_level``): T (B, 4, 4),
+    aff (B, 2) -> (T, aff, e, n, it), ``it`` a 0-d tensor.
 
-    The JAX package's ``lax.while_loop``: every candidate that is not done
-    keeps iterating while any candidate is still active, so the loop's
-    condition is read once per iteration (the loop's only host sync)."""
-    B = T.shape[0]
-    dev = T.device
-    e0, n0, Hm, g = _energy_and_system(T, aff, pts, planes, Klvl, tdist)
-    T_in, aff_in = T, aff
-    e, n = e0, n0
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    lam = torch.full((B,), 0.01, dtype=torch.float32, device=dev)
-    eye = torch.eye(8, device=dev)
-    it = 0
-    while it < max_iter and bool((~done & (lam < 1e4)).any()):
-        # Solve (H + lam * diag(H)) dx = -g with light Tikhonov
-        diag = torch.diagonal(Hm, dim1=-2, dim2=-1)
-        Hl = Hm + lam[:, None, None] * (diag[:, :, None] * eye) + 1e-5 * eye
-        dx = -solve_gauss_jordan_batched(Hl, g, 8)
-        T_new = se3_exp(dx[:, :6]) @ T
-        aff_new = aff + dx[:, 6:]
-        e_new, n_new, H_new, g_new = _energy_and_system(
-            T_new, aff_new, pts, planes, Klvl, tdist)
-
-        e_old_n = e / torch.clamp(n, min=1.0)
-        e_new_n = e_new / torch.clamp(n_new, min=1.0)
-        accept = (e_new_n < e_old_n) & ~done
-        # Converged: tiny step, or an accepted step that barely improved
-        small = ((dx.abs().amax(-1) < 1e-5)
-                 | (accept & (e_old_n - e_new_n
-                              < 1e-4 * torch.clamp(e_old_n, min=1e-6))))
-        it += 1
-        lam = torch.where(done, lam, torch.where(accept, lam * 0.5,
-                                                 lam * 4.0))
-        done = done | small
-        T = _bwhere(accept, T_new, T)
-        aff = _bwhere(accept, aff_new, aff)
-        e = torch.where(accept, e_new, e)
-        n = torch.where(accept, n_new, n)
-        Hm = _bwhere(accept, H_new, Hm)
-        g = _bwhere(accept, g_new, g)
-    # A level with too few valid residuals cannot constrain 8 DoF: keep the
-    # incoming estimate (sparse maps can starve the coarsest levels).
-    enough = n0 >= 32.0
-    return _bwhere(enough, T, T_in), _bwhere(enough, aff, aff_in), e, n, it
+    The Huber branch runs ``ops/track_lm.lm_level``: on the card the
+    ``track_lm`` kernel, two launches an iteration with the state on the
+    card; on the CPU its plain version. The RGB-D t-distribution branch is
+    ``lm_level_plain`` with that weighting on either device: a loop of
+    torch ops with one host sync per iteration, as the JAX package computes
+    this branch with XLA ops."""
+    if tdist:
+        return lm_level_plain(T, aff, pts, planes, Klvl, max_iter,
+                              _tdist_energy)
+    return lm_level(T, aff, pts, planes, Klvl, max_iter)
 
 
 def rotation_perturbations(scale: float = 0.02):
@@ -350,12 +317,12 @@ def _track_frame_batched(ref: CoarseTrackerRef, new_image, T_inits,
     new_pyr = build_pyramid(new_image, NUM_LEVELS)
     T, aff = T_inits, aff_inits
     results = {}
-    iters = []
+    its = []
     for lvl in range(NUM_LEVELS - 1, -1, -1):
         T, aff, e, n, it = _lm_level(T, aff, ref.level(lvl),
                                      _planes(new_pyr[lvl]), ref.K[lvl],
                                      MAX_ITERS[lvl], tdist)
-        iters.append(it)
+        its.append(it)
         if lvl == 0:
             results["energy"] = e / torch.clamp(n, min=1.0)
             results["num_terms"] = n
@@ -371,7 +338,8 @@ def _track_frame_batched(ref: CoarseTrackerRef, new_image, T_inits,
         "valid_frac": n_good / torch.clamp(pts0[4].float().sum(), min=1.0),
         "flow": _flow_indicators(T, pts0, ref.K[0]),
     })
-    return results, iters
+    # The levels' step counts, read once per frame.
+    return results, [int(i) for i in torch.stack(its).tolist()]
 
 
 def _flow_indicators(T, pts0, Klvl):

@@ -12,6 +12,7 @@ is equal.
 
 import numpy as np
 import pytest
+import torch
 
 from tandem_tpu.mapping.tsdf import TsdfConfig as JTsdfConfig
 from tandem_tpu.models.cva_mvsnet import CvaMVSNet as JCvaMVSNet
@@ -55,7 +56,8 @@ def test_backend_slice_matches_jax():
     jb = JTandemBackend(JMvsnetRunner(jm, variables, H, W, view_num=V),
                         JTsdfConfig(**TSDF), K, H, W, mesh_extraction_freq=0)
     tm = CvaMVSNet(depth_num=DEPTH_NUM, view_aggregation=True)
-    tb = TandemBackend(MvsnetRunner(tm, variables, H, W, view_num=V),
+    tb = TandemBackend(MvsnetRunner(tm, variables, H, W, view_num=V,
+                                    device="cpu"),
                        TsdfConfig(**TSDF), K, H, W)
 
     for i, (bgrs, poses, next_ref) in enumerate(_windows(3)):
@@ -86,7 +88,7 @@ def test_runner_packing_and_protocol_match_jax():
     variables = random_variables(jm, H, W, V, seed=5)
     jr = JMvsnetRunner(jm, variables, H, W, view_num=V)
     tr = MvsnetRunner(CvaMVSNet(depth_num=DEPTH_NUM, view_aggregation=True),
-                      variables, H, W, view_num=V)
+                      variables, H, W, view_num=V, device="cpu")
     img_j, Ks_j, c2w_j = jr.pack_inputs(bgrs, poses, K)
     img_t, Ks_t, c2w_t = tr.pack_inputs(bgrs, poses, K)
     np.testing.assert_array_equal(img_t, img_j.astype(np.float32) / 255.0)
@@ -106,3 +108,14 @@ def test_runner_packing_and_protocol_match_jax():
     assert set(res) == {"depth", "confidence", "depth_dense",
                         "confidence_dense"}
     assert res["depth"].shape == (H, W) and np.isfinite(res["depth"]).all()
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless the caller asks for the CPU (the
+    CPU tests pass device="cpu")."""
+    import inspect
+
+    from tandem_tpu_torch.mapping.tsdf import create_volume
+    for fn in (MvsnetRunner.__init__, create_volume):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default).type == "cuda", fn

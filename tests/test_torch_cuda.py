@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels have no CPU
-mode. They skip without a card. Every kernel is held exactly
-(torch.equal) against its plain PyTorch version on the card. This file imports no JAX, so it also runs
-where JAX is not installed:
+mode. They skip without a card. Every kernel is held against its plain
+PyTorch version on the card: exactly (torch.equal), or for the tracker's
+sums (K6, track_lm) within a stated tolerance of a float64 evaluation.
+This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -200,7 +201,7 @@ def test_probes_run_on_card(dev):
     assert len(idxchain_probe.main(n=128 * 64, iters=5)) == 2
 
 
-# --- K6 track_reduce, the culled TSDF paths --------------------------------
+# --- K6 track_reduce, the LM kernel track_lm, the culled TSDF paths -------
 
 def _k6_case(dev, N, B, H=61, W=83, seed=0):
     from chip_smoke import _track_case
@@ -255,6 +256,72 @@ def test_track_reduce_rejects_bad_input(dev):
         track_reduce(T, aff, pts, (planes[0].t(),) + planes[1:], K)
     with pytest.raises(ValueError):
         track_reduce(T, aff[:1], pts, planes, K)
+
+
+@pytest.mark.parametrize("B", [1, 5, 15])
+@pytest.mark.parametrize("N", [1, 1000, 1025, 4097])
+def test_track_lm_step_matches_f64(dev, B, N):
+    """One kernel step from a plain state against lm_step_plain in float64
+    (chip_smoke._lm_one_step raises past its stated tolerances)."""
+    from chip_smoke import _lm_one_step
+    from tandem_tpu_torch.ops.track_lm import lm_level
+    before = lm_level.launches
+    _lm_one_step(dev, N, B, 61, 83, 50, seed=N + B)
+    assert lm_level.launches == before + 1
+
+
+@pytest.mark.parametrize("B", [1, 5, 15])
+@pytest.mark.parametrize("N", [1000, 4097])
+def test_track_lm_level_matches_plain(dev, B, N):
+    """A whole level on the kernel against lm_level_plain on the card,
+    within chip_smoke's LM_POSE_PX and LM_AFF_TOL (sums in another order
+    can flip a near-tie accept)."""
+    from chip_smoke import LM_AFF_TOL, LM_POSE_PX
+    from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
+    case = _k6_case(dev, N, B, seed=N + 2 * B)
+    before = lm_level.launches
+    got = lm_level(*case, 50)
+    torch.cuda.synchronize()
+    assert lm_level.launches > before
+    ref = lm_level_plain(*case, 50)
+    assert (got[0] - ref[0]).abs().max() <= LM_POSE_PX / case[4][0]
+    assert (got[1] - ref[1]).abs().max() <= LM_AFF_TOL
+    assert 0 < int(got[4]) <= 50
+
+
+def test_track_lm_empty_and_saturated(dev):
+    """No usable residual: the level keeps its input (n0 < 32); every
+    residual past the cutoff: H = g = 0, so dx = 0 and the level stops
+    after one step with the input pose."""
+    from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
+    T, aff, pts, planes, K = _k6_case(dev, 2000, 5)
+    none = pts[:4] + (torch.zeros_like(pts[4]),)
+    cut = aff.clone()
+    cut[:, 1] = 1000.0
+    for args in ((T, aff, none, planes, K), (T, cut, pts, planes, K)):
+        got = lm_level(*args, 50)
+        ref = lm_level_plain(*args, 50)
+        assert torch.equal(got[0], args[0]) and torch.equal(got[1], args[1])
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
+        assert int(got[4]) == int(ref[4]) == 1
+    e, n = lm_level(T, cut, pts, planes, K, 50)[2:4]
+    assert torch.equal(e, n * 400.0) and bool((n > 0).all())
+
+
+def test_track_lm_rejects_bad_input(dev):
+    from tandem_tpu_torch.ops.track_lm import lm_level, lm_steps, new_state
+    T, aff, pts, planes, K = _k6_case(dev, 300, 2)
+    with pytest.raises(ValueError):
+        lm_level(T.double(), aff, pts, planes, K, 10)
+    with pytest.raises(ValueError):
+        lm_level(T, aff, tuple(p.cpu() for p in pts), planes, K, 10)
+    with pytest.raises(ValueError):
+        lm_level(T, aff[:1], pts, planes, K, 10)
+    with pytest.raises(ValueError):                     # > 32 candidates
+        lm_level(T[:1].expand(33, 4, 4).contiguous(),
+                 aff[:1].expand(33, 2).contiguous(), pts, planes, K, 10)
+    with pytest.raises(ValueError):                     # state of B = 1
+        lm_steps(new_state(1, dev), T, aff, pts, planes, K, 10, 1)
 
 
 def test_track_frame_card_matches_cpu(dev):

@@ -380,7 +380,7 @@ TRACK = list(range(7, 15))
 
 def _port_model_ref(scene):
     cfg = ttsdf.TsdfConfig()
-    vol = ttsdf.create_volume(cfg)
+    vol = ttsdf.create_volume(cfg, "cpu")
     K = T_(scene.K)
     for i in FUSE:
         d, p = T_(scene.depth(i)), T_(scene.c2w(i))
@@ -501,7 +501,8 @@ def test_track_against_the_mvs_model():
     variables = load_variables(f"{unit}/model_variables.pkl")
     Hs, Ws = scene.height, scene.width
     tb = TandemBackend(MvsnetRunner(CvaMVSNet(**cfg), variables, Hs, Ws,
-                                    view_num=7), ttsdf.TsdfConfig(),
+                                    view_num=7, device="cpu"),
+                       ttsdf.TsdfConfig(),
                        scene.K, Hs, Ws)
     jcfg = {k: tuple(v) if isinstance(v, list) else v
             for k, v in cfg.items()}

@@ -52,7 +52,7 @@ def _scans():
 
 def _fuse_both(scans):
     cfg_j, cfg_t = jt.TsdfConfig(**KW), tt.TsdfConfig(**KW)
-    vj, vt = jt.create_volume(cfg_j), tt.create_volume(cfg_t)
+    vj, vt = jt.create_volume(cfg_j), tt.create_volume(cfg_t, "cpu")
     Kt = torch.from_numpy(K)
     for depth, color, pose in scans:
         vj = jt.allocate_blocks(cfg_j, vj, jnp.asarray(depth),
@@ -80,7 +80,7 @@ def test_allocate_blocks_matches_jax():
     vj = jt.allocate_blocks(cfg_j, jt.create_volume(cfg_j),
                             jnp.asarray(depth), jnp.asarray(K),
                             jnp.asarray(pose))
-    vt = tt.allocate_blocks(cfg_t, tt.create_volume(cfg_t),
+    vt = tt.allocate_blocks(cfg_t, tt.create_volume(cfg_t, "cpu"),
                             torch.from_numpy(depth), torch.from_numpy(K),
                             torch.from_numpy(pose))
     n = int(vj.n_allocated)
@@ -134,7 +134,8 @@ def _wall_volume():
     Kt, pose = torch.from_numpy(K), torch.eye(4)
     depth = torch.full((H, W), 2.0)
     color = torch.full((H, W, 3), 100.0)
-    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg), depth, Kt, pose)
+    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg, "cpu"), depth, Kt,
+                             pose)
     for _ in range(3):
         vol = tt.integrate(cfg, vol, depth, color, Kt, pose)
     return cfg, vol, Kt, pose
@@ -174,11 +175,12 @@ def test_pool_growth_reallocates_dropped_blocks():
     depth, _, pose = _scans()[0]
     d, Kt, p = (torch.from_numpy(x) for x in (depth, K, pose))
     big = tt.allocate_blocks(tt.TsdfConfig(**KW),
-                             tt.create_volume(tt.TsdfConfig(**KW)), d, Kt, p)
+                             tt.create_volume(tt.TsdfConfig(**KW), "cpu"),
+                             d, Kt, p)
     n = big.n_allocated
     small_kw = dict(KW, pool_size=256, pool_max=4096)
     cfg = tt.TsdfConfig(**small_kw)
-    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg), d, Kt, p)
+    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg, "cpu"), d, Kt, p)
     assert vol.n_allocated == 256 and vol.n_dropped == n - 256
     while vol.n_allocated < n:
         cfg, vol = tt.grow_volume(cfg, vol)

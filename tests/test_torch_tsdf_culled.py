@@ -55,7 +55,7 @@ def _color(rgb=(90.0, 120.0, 200.0)):
 
 
 def _fused(depth, poses, cfg=CFG):
-    vol = tt.create_volume(cfg)
+    vol = tt.create_volume(cfg, "cpu")
     for p in poses:
         tt.allocate_blocks(cfg, vol, T_(depth), T_(K), T_(p))
         tt.integrate(cfg, vol, T_(depth), T_(_color()), T_(K), T_(p))
@@ -87,8 +87,8 @@ def test_integrate_culled_matches_full():
     the facing camera sees nearly every block; an away-facing camera sees
     almost none and integrates nothing."""
     depth = _wall()
-    vol = tt.allocate_blocks(CFG, tt.create_volume(CFG), T_(depth), T_(K),
-                             T_(np.eye(4, dtype=np.float32)))
+    vol = tt.allocate_blocks(CFG, tt.create_volume(CFG, "cpu"), T_(depth),
+                             T_(K), T_(np.eye(4, dtype=np.float32)))
     n_alloc = vol.n_allocated
     n_vis, cull = _culled_vs_full(vol, depth, K, np.eye(4, dtype=np.float32))
     assert 0.9 * n_alloc < n_vis <= n_alloc
@@ -153,8 +153,8 @@ def test_grow_then_axis_culled_splat():
     exact on the grown volume."""
     cfg = tt.TsdfConfig(**dict(KW, pool_size=256, pool_max=8192))
     depth, pose = _curved(), np.eye(4, dtype=np.float32)
-    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg), T_(depth), T_(K),
-                             T_(pose))
+    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg, "cpu"), T_(depth),
+                             T_(K), T_(pose))
     while vol.n_dropped:
         prev = vol.n_dropped
         cfg, vol = tt.grow_volume(cfg, vol)
@@ -279,7 +279,7 @@ def test_backend_culled_fusion_matches_jax_and_full():
         assert tb.stats()["n_allocated"] == jb.stats()["n_allocated"]
     assert culled == [False, True, False]
 
-    vol = tt.create_volume(tt.TsdfConfig(**KW))
+    vol = tt.create_volume(tt.TsdfConfig(**KW), "cpu")
     rgb = T_(np.ascontiguousarray(img[..., ::-1], dtype=np.float32))
     for d, p in kfs:
         tt.allocate_blocks(CFG, vol, T_(d), T_(K), T_(p))
