@@ -5,9 +5,10 @@ coarse tracker tracking against the TSDF model.
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
-                                             #   one keyframe per dtype and
-                                             #   of one track_frame at
-                                             #   640x480, traces in DIR
+                                             #   one keyframe per dtype (and
+                                             #   its device events) and of
+                                             #   one track_frame at 640x480,
+                                             #   traces in DIR
 
 Phases, each printing its numbers before the last line:
   1. device   the card's name and power limit (nvidia-smi);
@@ -16,7 +17,16 @@ Phases, each printing its numbers before the last line:
   3. kernels  each hand kernel against its plain PyTorch version on the
               card, exact (torch.equal), with both times: K1 edge_kth;
               P5 bilinear_index and P3 corner_blend in f32 and bf16 at
-              the three stage shapes of abl04 640x480; row_gather;
+              the three stage shapes of abl04 640x480; the plane-sweep
+              sample bilinear_sample (csrc/bilinear_sample.cu) at the same
+              six points: warp_sample on the golden pack's view 0 <- 1
+              sweep (and with the source camera in front of the near
+              hypotheses, so part of the sweep lies behind it), and
+              bilinear_sample on given positions, with its CUDA event and
+              profiler device times, its bound, the old path (positions,
+              pack_corners, P5, P3) and grid_sample on the same positions
+              by both clocks, and the wrapper's host cost per call;
+              row_gather, also at P4's shape;
   4. track kernels  K6 track_reduce against a float64 evaluation of its
               plain version at the tracker's level caps (640x480 level 0,
               the six 256x192 levels) for B = 1, 5, 15 candidates, within
@@ -38,8 +48,9 @@ Phases, each printing its numbers before the last line:
               own shapes (tandem_tpu_torch/experiments), M rows/s;
   6. golden   the trained abl04 unit (exported/tandem, 640x480, V=7)
               replays sample_inputs.npz in f32: worst MAE < 1e-2 over all
-              12 outputs, the reference's own boot-check bar; P5, P3 and
-              K1 must have launched;
+              12 outputs, the reference's own boot-check bar;
+              bilinear_sample and K1 must have launched, and P5 and P3,
+              off the main path, not (slice and track mvs hold the same);
   7. slice    TandemBackend (MvsnetRunner + TSDF allocate, integrate,
               culled splat render) runs 4 keyframes built from the golden
               views in f32; the rendered depth must agree with the MVSNet
@@ -60,8 +71,8 @@ Phases, each printing its numbers before the last line:
  13. track mvs the map from TandemBackend on the fixture's first two 7-view
               windows (trained abl04, f32), the reference at frame 10, the
               8 frames after it tracked: worst position error within
-              MVS_TRACK_BOUND; K1, P5, P3, K6 and track_lm must have
-              launched.
+              MVS_TRACK_BOUND; K1, bilinear_sample, K6 and track_lm must
+              have launched.
 The launch counters are set to 0 just before each driven path (the probes,
 the slices, the three tracking paths) and read just after it. The last line
 of stdout is the JSON result; any failed phase exits non-zero without it.
@@ -143,6 +154,10 @@ TRACK_OPS = 180
 # K1's work per pixel: 25 differences and 25 |.|, and n log2 n ~ 116
 # comparisons to order the 25 values.
 EDGE_OPS = 166
+# The plane-sweep sample's work per sample, besides 7 per channel for the
+# blend: ~15 for the projection and its two divisions, ~15 for the floor,
+# the weights and the in-bounds test, ~10 for the corner addresses.
+SAMPLE_OPS = 40
 # abl04 at 640x480: per stage (depth planes, H, W, feature channels).
 STAGE_SHAPES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
                 "stage3": (4, 480, 640, 8)}
@@ -154,6 +169,11 @@ KERNELS = {
                        "experiments/bench_idxchain.py:62"),
     "corner_blend": ("tandem_tpu_torch/csrc/corner_blend.cu",
                      "experiments/pallas_gather_probe.py:82"),
+    "bilinear_sample": ("tandem_tpu_torch/csrc/bilinear_sample.cu",
+                        "experiments/bench_idxchain.py:62 + "
+                        "experiments/pallas_gather_probe.py:82 (P5 + P3) "
+                        "on the main path, and the position math of "
+                        "tandem_tpu/ops/warp.py:96-116 (XLA)"),
     "row_gather": ("tandem_tpu_torch/csrc/row_gather.cu",
                    "experiments/pallas_gather_probe.py:35 "
                    "experiments/pallas_gather_probe.py:59 "
@@ -172,25 +192,31 @@ def log(msg: str):
 
 
 def wrappers() -> dict:
-    """Each kernel's wrapper; ``.launches`` counts its kernel launches."""
+    """Each kernel's wrappers; their ``.launches`` count its launches."""
     from tandem_tpu_torch.ops.bilinear_index import bilinear_index
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      warp_sample)
     from tandem_tpu_torch.ops.corner_blend import corner_blend
     from tandem_tpu_torch.ops.edge_kth import edge_kth_value
     from tandem_tpu_torch.ops.row_gather import row_gather
     from tandem_tpu_torch.ops.track_lm import lm_level
     from tandem_tpu_torch.ops.track_reduce import track_reduce
-    return {"edge_kth": edge_kth_value, "bilinear_index": bilinear_index,
-            "corner_blend": corner_blend, "row_gather": row_gather,
-            "track_reduce": track_reduce, "track_lm": lm_level}
+    return {"edge_kth": (edge_kth_value,), "bilinear_index": (bilinear_index,),
+            "corner_blend": (corner_blend,),
+            "bilinear_sample": (warp_sample, bilinear_sample),
+            "row_gather": (row_gather,), "track_reduce": (track_reduce,),
+            "track_lm": (lm_level,)}
 
 
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
+    for fns in wrappers().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in wrappers().items()}
 
 
 def require_launched(path: str, counts: dict, names, at_least: int = 1):
@@ -198,6 +224,13 @@ def require_launched(path: str, counts: dict, names, at_least: int = 1):
         if counts[name] < at_least:
             raise AssertionError(f"{path}: {name} launched {counts[name]} "
                                  f"< {at_least} times")
+
+
+def require_not_launched(path: str, counts: dict, names):
+    for name in names:
+        if counts[name]:
+            raise AssertionError(f"{path}: {name} launched {counts[name]} "
+                                 "times; it is off this path")
 
 
 def _nbytes(*tensors) -> int:
@@ -317,7 +350,7 @@ def _sample_kernels(dev, out: dict):
                                                      bilinear_index_plain)
     from tandem_tpu_torch.ops.corner_blend import (corner_blend,
                                                    corner_blend_plain)
-    from tandem_tpu_torch.ops.grid_sample import pack_corners
+    from tandem_tpu_torch.ops.bilinear_sample import pack_corners
     from tandem_tpu_torch.utils.cuda_timing import cuda_ms
     gen = torch.Generator(device=dev).manual_seed(1)
     res = {"bilinear_index": {"max_abs_err": 0.0},
@@ -376,6 +409,226 @@ def _sample_kernels(dev, out: dict):
     out.update(res)
 
 
+def _golden_sweep(dev, stage: str, D: int, H: int, W: int,
+                  behind: bool = False):
+    """The plane sweep of the golden pack's view 0 (reference) from view 1
+    (source) at one abl04 stage: the stage's intrinsics, and the depth
+    hypotheses as the model makes them (uniform at stage 1; adaptive
+    around the pack's upsampled depth of the stage before after it).
+    ``behind`` moves the source camera forward by the median hypothesis,
+    so that about half of the sweep lies behind it. Returns the ref->src
+    matrix (1, 3, 4), the depth (1, D, H, W) and the cameras (K, src,
+    ref)."""
+    import torch
+
+    from tandem_tpu_torch.models.layers import interpolate_bilinear
+    from tandem_tpu_torch.models.ranges import (adaptive_depth_range,
+                                                uniform_depth_range)
+    from tandem_tpu_torch.ops.warp import ref_to_src_matrix
+    pack = np.load(UNIT / "sample_inputs.npz")
+    with open(UNIT / "model_config.json") as f:
+        ratios = json.load(f)["depth_interval_ratio"]
+    i = int(stage[-1]) - 1
+    K = torch.from_numpy(pack[f"K{i + 1}"]).to(dev)
+    c2w = torch.from_numpy(pack["cam_to_world"]).to(dev)
+    src, ref = c2w[:, 1].clone(), c2w[:, 0].contiguous()
+    D1, H1, W1, _ = STAGE_SHAPES["stage1"]
+    depth, base = uniform_depth_range(
+        depth_min=torch.from_numpy(pack["depth_min"]).to(dev),
+        depth_max=torch.from_numpy(pack["depth_max"]).to(dev),
+        depth_num=D1, height=H1, width=W1)
+    if i > 0:
+        prev = torch.from_numpy(pack[f"out.stage{i}.depth_dense"]).to(dev)
+        up = interpolate_bilinear(prev[..., None], H, W)[..., 0]
+        depth = adaptive_depth_range(depth=up, interval=ratios[i] * base,
+                                     depth_num=D)
+    if behind:
+        src[:, 2, 3] += float(depth.median())
+    return (ref_to_src_matrix(K, src, K, ref), depth.contiguous(),
+            (K, src, ref))
+
+
+def _device_ms(fn, calls: int = 5) -> float:
+    """torch.profiler's device time of one call of ``fn``: the kernels and
+    copies of ``calls`` calls, summed, over the calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    with prof(activities=[ProfilerActivity.CPU,
+                          ProfilerActivity.CUDA]) as p:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in p.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / calls
+
+
+def _host_us(fn, calls: int = 500) -> float:
+    """Host time of one call of ``fn`` (time.perf_counter over ``calls``
+    calls, no sync between them: the device runs behind)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return secs / calls * 1e6
+
+
+def _old_sample(feat, mat, depth):
+    """The warp's sample before the one-launch kernel: the positions in
+    torch, pack_corners, P5, P3."""
+    from tandem_tpu_torch.ops.bilinear_index import bilinear_index
+    from tandem_tpu_torch.ops.bilinear_sample import (pack_corners,
+                                                      sweep_positions)
+    from tandem_tpu_torch.ops.corner_blend import corner_blend
+    B, H, W, C = feat.shape
+    px, py, z = sweep_positions(mat, depth, H, W)
+    rows, w = bilinear_index(px, py, H, W, keep=~(z < 0.001), batches=B,
+                             dtype=feat.dtype)
+    table = pack_corners(feat).reshape(-1, 4 * C)
+    out = corner_blend(table, rows.reshape(-1), w.reshape(4, -1))
+    return out.reshape(*px.shape, C)
+
+
+def _host_cost(dev, feat, mat, depth, cams, library) -> dict:
+    """The wrapper's host cost per call and its parts: the ctypes call
+    alone, ``_build.launch`` (device and stream lookup + the call), the
+    checks, the output's allocation (and its free), the whole wrapper;
+    grid_sample's, for comparison; and plane_sweep_warp (the 4x4 matrices
+    + the wrapper), with and without the reference's matrix passed in."""
+    import torch
+
+    from tandem_tpu_torch.ops import _build
+    from tandem_tpu_torch.ops import bilinear_sample as bs
+    from tandem_tpu_torch.ops.warp import plane_sweep_warp, ref_pixel_to_world
+    B, H, W, C = feat.shape
+    D = depth.shape[1]
+    buf = torch.empty((B, D, H, W, C), dtype=feat.dtype, device=dev)
+    args = (bs._SWEEP_ARGS.pack(
+        feat.data_ptr(), mat.data_ptr(), depth.data_ptr(), buf.data_ptr(),
+        B, D, H, W, C, *bs._plan(B, D, H, W, C, feat.element_size(),
+                                 feat.data_ptr() % 16, 0),
+        int(feat.dtype == torch.bfloat16), 0.001),)
+    raw = _build.kernels().tandem_warp_sample
+    stream = torch.cuda.current_stream().cuda_stream
+    K, src, ref = cams
+    p2w = ref_pixel_to_world(K, ref)
+
+    def sweep(**kw):
+        return plane_sweep_warp(feat, depth, src_K=K, src_cam_to_world=src,
+                                ref_K=K, ref_cam_to_world=ref,
+                                with_mask=False, **kw)
+    return {
+        "ctypes call": _host_us(lambda: raw(*args, stream)),
+        "_build.launch": _host_us(
+            lambda: _build.launch("tandem_warp_sample", dev, *args)),
+        "checks": _host_us(lambda: bs._check("warp_sample", feat,
+                                             (mat, depth))),
+        "output allocation": _host_us(lambda: feat.new_empty(buf.shape)),
+        "warp_sample": _host_us(lambda: bs.warp_sample(feat, mat, depth)),
+        "grid_sample": _host_us(library),
+        "plane_sweep_warp": _host_us(sweep),
+        "plane_sweep_warp with the stage's ref_p2w": _host_us(
+            lambda: sweep(ref_p2w=p2w))}
+
+
+def _sweep_kernels(dev, out: dict):
+    """csrc/bilinear_sample.cu in its two modes against its plain versions
+    at the abl04 640x480 stage shapes, f32 and bf16, with the times of the
+    kernel, its plain version, the old path and grid_sample."""
+    import torch
+    import torch.nn.functional as F
+
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      bilinear_sample_plain,
+                                                      sweep_positions,
+                                                      warp_sample,
+                                                      warp_sample_plain)
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    gen = torch.Generator(device=dev).manual_seed(3)
+    res = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for stage, (D, H, W, C) in STAGE_SHAPES.items():
+            feat = torch.randn((1, H, W, C), generator=gen,
+                               device=dev).to(dtype)
+            for behind in (True, False):    # the main case stays in mat
+                mat, depth, cams = _golden_sweep(dev, stage, D, H, W, behind)
+                got = warp_sample(feat, mat, depth)
+                res["max_abs_err"] = max(res["max_abs_err"], _exact(
+                    f"warp_sample {dn} {stage} behind={behind}", got,
+                    warp_sample_plain(feat, mat, depth)))
+                if behind:
+                    z = sweep_positions(mat, depth, H, W)[2]
+                    dropped = float((z < 0.001).float().mean())
+            x, y, keep = (a.reshape(1, -1)
+                          for a in _warp_positions(dev, gen, D, H, W))
+            res["max_abs_err"] = max(res["max_abs_err"], _exact(
+                f"bilinear_sample {dn} {stage}",
+                bilinear_sample(feat, x, y, keep),
+                bilinear_sample_plain(feat, x, y, keep)))
+            px, py, z = sweep_positions(mat, depth, H, W)
+            gs = _grid_sample_args(feat, px, py, ~(z < 0.001), H, W)
+
+            def library():
+                return F.grid_sample(*gs, mode="bilinear",
+                                     padding_mode="zeros", align_corners=True)
+            if dtype == torch.float32:   # the same function (see P5 + P3)
+                lib_err = float((library().reshape(C, -1).t()
+                                 - got.reshape(-1, C)).abs().max())
+                if not lib_err <= 2e-4 * float(feat.abs().max()):
+                    raise AssertionError(f"grid_sample differs from "
+                                         f"warp_sample at {stage}: {lib_err}")
+
+            def kernel():
+                return warp_sample(feat, mat, depth)
+            # Rounds of 20 calls: where the host dispatch is the longer,
+            # the events read its steady rate, not a round's first call.
+            t = {"kernel": cuda_ms(kernel, iters=100),
+                 "plain": cuda_ms(lambda: warp_sample_plain(feat, mat, depth),
+                                  iters=10),
+                 "old": cuda_ms(lambda: _old_sample(feat, mat, depth)),
+                 "grid_sample": cuda_ms(library, iters=100),
+                 "given positions": cuda_ms(
+                     lambda: bilinear_sample(feat, x, y, keep), iters=100)}
+            dev_ms = {"kernel": _device_ms(kernel),
+                      "old": _device_ms(lambda: _old_sample(feat, mat, depth)),
+                      "grid_sample": _device_ms(library)}
+            bound = _bound(_nbytes(feat, mat, depth, got),
+                           got.numel() // C * (SAMPLE_OPS + 7 * C))
+            log(f"[kernels] warp_sample {stage} {dn} D={D} {W}x{H} C={C}: "
+                f"exact (and behind the source camera, {dropped:.1%} of the "
+                f"samples dropped; bilinear_sample on given positions "
+                f"exact); kernel {t['kernel']:.4f} ms (events) "
+                f"{dev_ms['kernel']:.4f} ms (device), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}): share "
+                f"{bound['bound_ms'] / dev_ms['kernel']:.1%} of the device "
+                f"time; plain {t['plain']:.4f} ms; old path (positions, "
+                f"pack_corners, P5, P3) {t['old']:.4f} ms (events) "
+                f"{dev_ms['old']:.4f} ms (device); grid_sample on the "
+                f"positions {t['grid_sample']:.4f} ms (events) "
+                f"{dev_ms['grid_sample']:.4f} ms (device); bilinear_sample "
+                f"on given positions {t['given positions']:.4f} ms (events)")
+            if stage == "stage2" and dtype == torch.float32:
+                host = _host_cost(dev, feat, mat, depth, cams, library)
+                log("[kernels] host cost a call (perf_counter, 500 calls, "
+                    "stage 2 f32): " + ", ".join(
+                        f"{k} {v:.2f} us" for k, v in host.items()))
+            if stage == "stage1" and dtype == torch.bfloat16:
+                res.update(ms=t["kernel"], plain_ms=t["plain"],
+                           device_ms=dev_ms["kernel"],
+                           library_ms=t["grid_sample"],
+                           library="grid_sample on the warp's positions",
+                           **bound)
+    out["bilinear_sample"] = res
+
+
 def _row_gather(dev, out: dict):
     import torch
 
@@ -399,6 +652,22 @@ def _row_gather(dev, out: dict):
     log(f"[kernels] row_gather ({M}, {CW}) bf16 N={N_FULL}: exact in f32 "
         f"and bf16 (and width 33); kernel {ms:.4f} ms plain {plain_ms:.4f} "
         f"ms index_select {lib_ms:.4f} ms; bound {bound}")
+    # P4's own shape: G chunks of the (M, 64) bf16 table's rows.
+    from tandem_tpu_torch.experiments.shuffle_probe import G
+    idx4 = torch.randint(0, M, (G * M,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    p4 = {"kernel": cuda_ms(lambda: row_gather(tbl, idx4)),
+          "plain": cuda_ms(lambda: row_gather_plain(tbl, idx4)),
+          "index_select": cuda_ms(lambda: torch.index_select(
+              tbl, 0, idx4.long()))}
+    b4 = _bound(_nbytes(tbl, idx4) + G * M * CW * tbl.element_size(), 0)
+    _exact("row_gather at P4's shape", row_gather(tbl, idx4),
+           row_gather_plain(tbl, idx4))
+    log(f"[kernels] row_gather at P4's shape ({G} x {M} rows of ({M}, {CW}) "
+        f"bf16): exact; kernel {p4['kernel']:.4f} ms, bound "
+        f"{b4['bound_ms']:.4f} ms ({b4['bound_by']}): share "
+        f"{b4['bound_ms'] / p4['kernel']:.1%}; plain {p4['plain']:.4f} ms; "
+        f"index_select {p4['index_select']:.4f} ms (CUDA events)")
     out["row_gather"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                          **bound, "library_ms": lib_ms,
                          "library": "torch.index_select"}
@@ -408,6 +677,7 @@ def phase_kernels(dev) -> dict:
     out = {}
     _edge_kth(dev, out)
     _sample_kernels(dev, out)
+    _sweep_kernels(dev, out)
     _row_gather(dev, out)
     return out
 
@@ -475,8 +745,9 @@ def phase_golden(runner, pack, dev, tol: float) -> float:
         f"{delta}")
     if not worst < tol:
         raise AssertionError(f"{dn} golden MAE {worst:.3e} >= {tol}")
-    require_launched(f"{dn} golden", delta,
-                     ("edge_kth", "bilinear_index", "corner_blend"))
+    require_launched(f"{dn} golden", delta, ("edge_kth", "bilinear_sample"))
+    require_not_launched(f"{dn} golden", delta,
+                         ("bilinear_index", "corner_blend"))
     return worst
 
 
@@ -520,8 +791,10 @@ def phase_slice(runner, pack, dev, profile: Path = None) -> dict:
         f"n_allocated {backend.stats()['n_allocated']}, peak memory "
         f"{peak_gb:.3f} GB, call ms {[round(x, 3) for x in call_ms]}")
     require_launched(f"{dn} slice", counts, ("edge_kth",), N_KEYFRAMES)
-    require_launched(f"{dn} slice", counts,
-                     ("bilinear_index", "corner_blend"), N_KEYFRAMES)
+    require_launched(f"{dn} slice", counts, ("bilinear_sample",),
+                     N_KEYFRAMES)
+    require_not_launched(f"{dn} slice", counts,
+                         ("bilinear_index", "corner_blend"))
 
     rdepth = backend.get_tracking_depth_map()["depth"]
     mvs = runner.get_result(device=True)["depth"]
@@ -571,12 +844,18 @@ def phase_slice(runner, pack, dev, profile: Path = None) -> dict:
         mvs_ms.append((t2 - t1) * 1e3)
         fuse_ms.append((t3 - t2) * 1e3)
     if profile:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile as prof
         with prof(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as p:
             fuse(mvsnet())
             torch.cuda.synchronize()
-        log(p.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+        events = p.key_averages()
+        log(events.table(sort_by="cuda_time_total", row_limit=30))
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
+        log(f"[slice {dn}] profiled keyframe: {sum(e.count for e in device)}"
+            f" device events (kernels and copies), device busy "
+            f"{sum(e.self_device_time_total for e in device) / 1e3:.3f} ms")
         profile.mkdir(parents=True, exist_ok=True)
         p.export_chrome_trace(str(profile / f"keyframe_trace_{dn}.json"))
     m, f = float(np.median(mvs_ms)), float(np.median(fuse_ms))
@@ -1112,8 +1391,10 @@ def phase_track_mvs(dev) -> dict:
                        list(range(ref_id + 1, ref_id + 9)), "track mvs")
     counts = read_counts()
     require_launched("track mvs", counts,
-                     ("edge_kth", "bilinear_index", "corner_blend",
-                      "track_reduce", "track_lm"))
+                     ("edge_kth", "bilinear_sample", "track_reduce",
+                      "track_lm"))
+    require_not_launched("track mvs", counts,
+                         ("bilinear_index", "corner_blend"))
     worst = max(e for e, _ in errs)
     log(f"[track mvs] backend {backend.last_fuse}; worst position error "
         f"{worst * 1e3:.3f} mm (bound {MVS_TRACK_BOUND * 1e3} mm), "

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.warp import plane_sweep_warp
+from ..ops.warp import plane_sweep_warp, ref_pixel_to_world
 from .cost_reg import CostRegNet, VolumeGate
 from .edge_filter import depth_filter_edges
 from .feature_net import FeatureNet
@@ -90,9 +90,10 @@ class CvaMVSNet(nn.Module):
                 depth_filter_discard_percentage=None) -> Outputs:
         B, V, C, H, W = image.shape
         feats = self.feature_net(image.reshape(B * V, C, H, W).float())
-        # per stage: (B, V, Hs, Ws, Cs), channels last for the warp
-        features = {s: f.permute(0, 2, 3, 1).reshape(B, V, *f.shape[2:],
-                                                     f.shape[1])
+        # per stage: (B, V, Hs, Ws, Cs), channels last and contiguous for
+        # the warp's kernel
+        features = {s: f.permute(0, 2, 3, 1).contiguous().reshape(
+                        B, V, *f.shape[2:], f.shape[1])
                     for s, f in feats.items()}
 
         outputs = {}
@@ -141,6 +142,9 @@ class CvaMVSNet(nn.Module):
         B, V, H, W, C = features.shape
         ref_volume = features[:, 0, None].to(self.dtype)   # (B, 1, H, W, C)
         ref_c2w = cam_to_world[:, 0]
+        # The reference's pixel -> world matrix once for all views (the
+        # same ops on the same tensors: equal to computing it per view).
+        ref_p2w = ref_pixel_to_world(K, ref_c2w)
         # Views are accumulated one at a time: a per-view (B, D, H, W, C)
         # volume is never stacked (118 MB each at stage 1, 640x480).
         acc = sq_acc = None
@@ -148,7 +152,7 @@ class CvaMVSNet(nn.Module):
             warped, _ = plane_sweep_warp(
                 features[:, v], depth_in, src_K=K,
                 src_cam_to_world=cam_to_world[:, v], ref_K=K,
-                ref_cam_to_world=ref_c2w)
+                ref_cam_to_world=ref_c2w, with_mask=False, ref_p2w=ref_p2w)
             warped = warped.to(self.dtype)
             if gate is not None:
                 diff_sq = (warped - ref_volume) ** 2

@@ -39,6 +39,9 @@ SIGNATURES = {
                             _c_int, _c_int, _c_ptr, _c_ptr],
     "tandem_row_gather": [_c_ptr, _c_ptr, _c_i64, _c_i64, _c_i64, _c_int,
                           _c_ptr, _c_ptr],
+    # one packed argument block (bytes) and the stream
+    "tandem_warp_sample": [ctypes.c_char_p, _c_ptr],
+    "tandem_bilinear_sample": [ctypes.c_char_p, _c_ptr],
     "tandem_track_reduce": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
                            + [_c_f32] * 6 + [_c_ptr, _c_int] + [_c_ptr] * 5,
     "tandem_track_lm": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
@@ -120,11 +123,29 @@ def kernels() -> ctypes.CDLL:
 
 def launch(name: str, device, *args) -> None:
     """Call the C entry point ``name`` with ``args`` on ``device``'s current
-    stream (appended as the last argument); raise if the launch failed."""
+    stream (appended as the last argument); raise if the launch failed.
+
+    A launch goes to the calling thread's current device, so ``device`` is
+    made current around the call when it is not already. The stream comes
+    from torch's raw-handle lookup where it has one (a few µs less per
+    launch than building a ``torch.cuda.Stream``)."""
     import torch
-    lib = kernels()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, name)(*args, stream)
+    fn = getattr(kernels(), name)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = _raw_stream()(index)
+    if index == current:
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+@functools.cache
+def _raw_stream():
+    """device index -> the raw handle of its current CUDA stream."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw or (lambda index: torch.cuda.current_stream(index).cuda_stream)

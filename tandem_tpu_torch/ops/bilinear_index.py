@@ -7,7 +7,7 @@ CUDA tensors and uses ``bilinear_index_plain`` for CPU tensors. There is no
 fallback: a CUDA tensor goes through the kernel or the call raises.
 
 For each position (x, y) it returns the row of the packed-corner table
-(``ops/grid_sample.pack_corners``) that holds the four corners of the floor
+(``ops/bilinear_sample.pack_corners``) that holds the four corners of the floor
 cell, and the four corner weights in the order (y, x), (y, x+1), (y+1, x),
 (y+1, x+1). A cell whose floor lies beyond the 1-pixel zero pad, or whose
 keep flag is False, gets four zero weights.

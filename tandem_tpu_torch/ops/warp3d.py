@@ -3,7 +3,8 @@
 Port of ``tandem_tpu/ops/warp3d.py`` (parity target homo_warping_3d,
 cva_mvsnet/models/module.py:911-1013): for each reference pixel at its
 reference depth, look up the source depth at the projected location
-(``ops/grid_sample.bilinear_sample_pixel``, kernels P5 + P3), then
+(``ops/grid_sample.bilinear_sample_pixel``, one launch of
+``csrc/bilinear_sample.cu``), then
 reproject that source depth back into the reference view — yielding the
 corresponding pixel, its depth in the reference frame, and a validity mask.
 Used for cross-view depth consistency checks.

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: its CUDA kernels have no CPU
-mode. They skip without a card. Every kernel is held against its plain
+mode. They skip without a card. Every kernel (the plane-sweep sample
+``csrc/bilinear_sample.cu`` included) is held against its plain
 PyTorch version on the card: exactly (torch.equal), or for the tracker's
 sums (K6, track_lm) within a stated tolerance of a float64 evaluation.
 This file imports no JAX, so it also runs where JAX is not installed:
@@ -17,7 +18,7 @@ from tandem_tpu_torch.ops.bilinear_index import (bilinear_index,
                                                  bilinear_index_plain)
 from tandem_tpu_torch.ops.corner_blend import corner_blend, corner_blend_plain
 from tandem_tpu_torch.ops.edge_kth import edge_kth_plain, edge_kth_value
-from tandem_tpu_torch.ops.grid_sample import pack_corners
+from tandem_tpu_torch.ops.bilinear_sample import pack_corners
 from tandem_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +166,165 @@ def test_sample_kernels_reject_bad_input(dev):
         row_gather(torch.zeros((8, 10), device=dev).t(), rows)
     with pytest.raises(ValueError):
         row_gather(table.half(), rows)
+
+
+# --- the plane-sweep sample csrc/bilinear_sample.cu -------------------------
+
+# Two ref->src matrices: a sweep whose positions pass both pad edges, and
+# one whose source camera lies behind the nearer hypotheses (z < 0).
+SWEEP_MATS = np.array(
+    [[[1.08, 0.02, -2.5, 0.8], [0.01, 0.97, -1.0, 0.5],
+      [5e-4, 3e-4, 0.98, 0.01]],
+     [[1.02, 0.0, 1.5, -0.4], [0.0, 1.03, -2.0, 0.3],
+      [1e-3, 0.0, 0.9, -1.5]]], np.float32)
+
+
+def _sweep_case(dev, nb: int, C: int, dtype, seed: int, offset: int = 0):
+    """(img, ref_to_src, depth) of ``nb`` images at H x W, 3 hypotheses;
+    ``offset`` elements shift the image's base pointer."""
+    rng = np.random.RandomState(seed)
+    n = nb * H * W * C
+    img = torch.empty(n + offset, dtype=dtype, device=dev)[offset:]
+    img.copy_(torch.from_numpy(rng.randn(n).astype(np.float32)))
+    depth = rng.uniform(0.5, 5.0, (nb, 3, H, W)).astype(np.float32)
+    return (img.view(nb, H, W, C), torch.from_numpy(SWEEP_MATS[:nb]).to(dev),
+            torch.from_numpy(depth).to(dev))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 32])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_warp_sample_kernel_equals_plain(dev, dtype, C, nb):
+    """The plane-sweep mode, every vector width: one launch, exact."""
+    from tandem_tpu_torch.ops.bilinear_sample import (warp_sample,
+                                                      warp_sample_plain)
+    img, mat, depth = _sweep_case(dev, nb, C, dtype, seed=C)
+    before = warp_sample.launches
+    out = warp_sample(img, mat, depth)
+    torch.cuda.synchronize()
+    assert warp_sample.launches == before + 1
+    assert out.dtype == dtype and out.shape == (nb, 3, H, W, C)
+    assert torch.equal(out, warp_sample_plain(img, mat, depth))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C", [1, 3, 8, 16, 32])
+def test_bilinear_sample_kernel_equals_plain(dev, dtype, C):
+    """Given positions past both pad edges, with and without keep."""
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      bilinear_sample_plain)
+    x, y, keep = (torch.from_numpy(a).to(dev).reshape(B, -1)
+                  for a in _positions())
+    img = torch.from_numpy(np.random.RandomState(C).randn(
+        B, H, W, C).astype(np.float32)).to(dev, dtype)
+    for k in (None, keep):
+        before = bilinear_sample.launches
+        out = bilinear_sample(img, x, y, k)
+        torch.cuda.synchronize()
+        assert bilinear_sample.launches == before + 1
+        assert out.dtype == dtype and out.shape == (B, x.shape[1], C)
+        assert torch.equal(out, bilinear_sample_plain(img, x, y, k))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("C,offset", [(6, 0), (12, 0), (8, 1), (32, 3)])
+def test_sample_kernel_misaligned(dev, dtype, C, offset):
+    """Channel counts that 16-byte vectors do not divide, and image base
+    pointers off 16-byte alignment: narrower vectors, still exact."""
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      bilinear_sample_plain,
+                                                      warp_sample,
+                                                      warp_sample_plain)
+    img, mat, depth = _sweep_case(dev, 2, C, dtype, seed=C, offset=offset)
+    assert torch.equal(warp_sample(img, mat, depth),
+                       warp_sample_plain(img, mat, depth))
+    x, y, keep = (torch.from_numpy(a).to(dev).reshape(B, -1)
+                  for a in _positions())
+    assert torch.equal(bilinear_sample(img, x, y, keep),
+                       bilinear_sample_plain(img, x, y, keep))
+
+
+def test_bilinear_sample_rejects_bad_input(dev):
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      warp_sample)
+    img = torch.zeros((1, 8, 8, 4), device=dev)
+    mat = torch.zeros((1, 3, 4), device=dev)
+    depth = torch.zeros((1, 2, 8, 8), device=dev)
+    for bad in ((img.double(), mat, depth),              # image dtype
+                (img, mat.double(), depth),              # matrix dtype
+                (img, mat[:, :, :3], depth),             # matrix shape
+                (img, mat, depth[:, :, :4]),             # depth shape
+                (img.transpose(1, 2), mat, depth),       # non-contiguous
+                (img, mat.cpu(), depth)):                # device
+        with pytest.raises(ValueError):
+            warp_sample(*bad)
+    x = torch.zeros((1, 6), device=dev)
+    for bad in ((img, x, x[:, :5]),                      # shapes differ
+                (img, x.half(), x.half()),               # position dtype
+                (img, x.t(), x.t()),                     # (N, 1), not (B, N)
+                (img, x[:, ::2], x[:, 3:]),              # non-contiguous
+                (img, x, x, torch.ones((1, 6), device=dev))):  # keep dtype
+        with pytest.raises(ValueError):
+            bilinear_sample(*bad)
+
+
+def test_stage_ref_p2w_equals_per_view_on_card(dev):
+    """plane_sweep_warp with the stage's reference pixel -> world matrix
+    passed in equals computing it in the call, on the card."""
+    from tandem_tpu_torch.ops.warp import plane_sweep_warp, ref_pixel_to_world
+    rng = np.random.RandomState(1)
+    K = torch.tensor([[[30.0, 0, 26.0], [0, 30.0, 18.0], [0, 0, 1]]],
+                     device=dev)
+    ref = torch.eye(4, device=dev)[None]
+    feat = torch.from_numpy(rng.randn(1, H, W, 8).astype(np.float32)).to(dev)
+    depth = torch.from_numpy(rng.uniform(0.5, 5.0, (1, 4, H, W)).astype(
+        np.float32)).to(dev)
+    p2w = ref_pixel_to_world(K, ref)
+    for t in ([0.1, 0.0, 0.02], [-0.2, 0.05, 1.5]):
+        src = torch.eye(4, device=dev)[None]
+        src[0, :3, 3] = torch.tensor(t, device=dev)
+        kw = dict(src_K=K, src_cam_to_world=src, ref_K=K,
+                  ref_cam_to_world=ref, with_mask=False)
+        assert torch.equal(plane_sweep_warp(feat, depth, **kw)[0],
+                           plane_sweep_warp(feat, depth, ref_p2w=p2w,
+                                            **kw)[0])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cva_mvsnet_card_equals_plain_sample(dev, dtype, monkeypatch):
+    """The whole cascade on the card (64x96, V = 3, planes 8/4/4) with the
+    sample kernel and with warp_sample swapped for its plain version: equal
+    outputs (cuDNN held to deterministic algorithms)."""
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.ops import warp as warp_mod
+    from tandem_tpu_torch.ops.bilinear_sample import (warp_sample,
+                                                      warp_sample_plain)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    torch.manual_seed(0)
+    model = CvaMVSNet(depth_num=(8, 4, 4), view_aggregation=True,
+                      dtype=dtype).eval().to(dev)
+    rng = np.random.RandomState(0)
+    Hm, Wm, V = 64, 96, 3
+    image = torch.from_numpy(rng.rand(1, V, 3, Hm, Wm).astype(np.float32))
+    K = np.array([[70.0, 0, (Wm - 1) / 2], [0, 70.0, (Hm - 1) / 2],
+                  [0, 0, 1]], np.float32)
+    Ks = [torch.from_numpy(np.concatenate([K[:2] * s, K[2:]])[None]).to(dev)
+          for s in (0.25, 0.5, 1.0)]
+    c2w = np.tile(np.eye(4, dtype=np.float32), (1, V, 1, 1))
+    for v in range(V):
+        c2w[0, v, :3, 3] = [0.12 * (v - 1), 0.02 * v, 0.03 * v]
+    args = (image.to(dev), Ks, torch.from_numpy(c2w).to(dev),
+            torch.full((1,), 0.5, device=dev), torch.full((1,), 6.0,
+                                                          device=dev))
+    before = warp_sample.launches
+    got = model(*args)
+    assert warp_sample.launches == before + 3 * (V - 1)
+    monkeypatch.setattr(warp_mod, "warp_sample", warp_sample_plain)
+    ref = model(*args)
+    assert warp_sample.launches == before + 3 * (V - 1)
+    for a, b in zip(got, ref):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 def test_deconv_bf16_matches_f32_cast_down(dev):

@@ -32,9 +32,9 @@ from tandem_tpu.ops.warp3d import depth_reprojection_warp as j_warp3d
 from tandem_tpu_torch.ops.bilinear_index import (bilinear_index,
                                                  bilinear_index_plain)
 from tandem_tpu_torch.ops.corner_blend import corner_blend, corner_blend_plain
+from tandem_tpu_torch.ops.bilinear_sample import pack_corners
 from tandem_tpu_torch.ops.grid_sample import (bilinear_sample_pixel,
-                                              grid_sample_bilinear,
-                                              pack_corners)
+                                              grid_sample_bilinear)
 from tandem_tpu_torch.ops.row_gather import row_gather
 from tandem_tpu_torch.ops.warp3d import depth_reprojection_warp
 
@@ -222,7 +222,8 @@ def test_pack_corners_exact(dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_bilinear_sample_pixel_matches_jax(dtype):
-    """P5 + P3 against JAX ``bilinear_sample_pixel`` (its einsum blend):
+    """The sample (``bilinear_sample``; on the CPU, the P5 + P3 chain's
+    plain versions) against JAX ``bilinear_sample_pixel`` (its einsum blend):
     <= 1e-6 in f32 (summation order); within 1 bf16 ulp in bf16."""
     rng = np.random.RandomState(7)
     B, H, W, C, N = 2, 13, 17, 5, 300
