@@ -7,6 +7,9 @@ counted in the traces the run writes.
     git archive <parent> | tar -x -C _archive_check/parent
     python -m tandem_tpu_torch.experiments.ab_chip_smoke _archive_check/parent
 
+Both sides run with the same environment, with ``CUBLAS_WORKSPACE_CONFIG``
+set to the value the change's ``chip_smoke.py`` sets for itself, so that a
+parent that does not set it is not timed with another cuBLAS workspace.
 Run from the root of the change's checkout, on a card. Each run's output
 and ``ab.json`` go to ``--out``, the traces (8 MB each) to ``--traces``;
 both default to directories under the gitignored ``_archive_check/``.
@@ -16,12 +19,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
 from pathlib import Path
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+ENV = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 SLICE = re.compile(r"^\[slice (float32|bfloat16)\] per keyframe .*?MVSNet "
                    r"([0-9.]+) ms .*?fusion \(allocate\+integrate\+render\) "
                    r"([0-9.]+) ms, total ([0-9.]+) ms", re.M)
@@ -39,7 +44,7 @@ def run(checkout: Path, tag: str, out: Path, traces: Path) -> dict:
     log = out / f"{tag}.log"
     with open(log, "w") as f:
         rc = subprocess.run([sys.executable, "chip_smoke.py", "--profile-dir",
-                             str(prof)], cwd=checkout, stdout=f,
+                             str(prof)], cwd=checkout, env=ENV, stdout=f,
                             stderr=subprocess.STDOUT).returncode
     text = log.read_text()
     res = {"rc": rc, "last_line": text.strip().splitlines()[-1][:200]}

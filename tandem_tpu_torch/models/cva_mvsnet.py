@@ -15,9 +15,10 @@ features, cost volume, gate and U-Net in ``dtype``; projections, depth
 hypotheses, the upsampled depth, softmax and depth regression in float32;
 every output float32. The bfloat16 model loads the same float32
 state_dict and casts where the weights are used. Constructing the model
-pins cuDNN convolutions and CUDA matmuls to full f32 (no TF32) for the
-whole process; the TF32 default would cost the f32 golden parity (the same
-trap as the TPU's default matmul precision).
+pins cuDNN convolutions and CUDA matmuls to full f32 (no TF32) and cuDNN
+to deterministic algorithms for the whole process; the TF32 default would
+cost the f32 golden parity (the same trap as the TPU's default matmul
+precision).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import torch.nn as nn
 
 from ..ops.warp import plane_sweep_warp, ref_pixel_to_world
 from .cost_reg import CostRegNet, VolumeGate
-from .edge_filter import depth_filter_edges
+from .edge_filter import filter_edges
 from .feature_net import FeatureNet
 from .layers import interpolate_bilinear
 from .ranges import adaptive_depth_range, uniform_depth_range
@@ -51,9 +52,12 @@ class Outputs(NamedTuple):
 
 
 def pin_f32_precision():
-    """Full f32 for cuDNN convolutions and CUDA matmuls (process-wide)."""
+    """Full f32 for cuDNN convolutions and CUDA matmuls, and cuDNN held to
+    deterministic algorithms (process-wide): the same inputs give the same
+    bits from run to run, which the edge filter's exact threshold needs."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
 
 
 class CvaMVSNet(nn.Module):
@@ -122,10 +126,10 @@ class CvaMVSNet(nn.Module):
         for stage in STAGES:
             depth, conf = outputs[stage]
             if depth_filter_discard_percentage is not None:
-                fdepth, mask = depth_filter_edges(
-                    depth, depth_filter_discard_percentage)
-                fconf = torch.where(mask, torch.zeros_like(conf), conf)
-                result[stage] = StageOutputs(fdepth, fconf, depth, conf)
+                filtered = filter_edges(
+                    depth, depth_filter_discard_percentage, conf)
+                result[stage] = StageOutputs(filtered.depth, filtered.conf,
+                                             depth, conf)
             else:
                 result[stage] = StageOutputs(depth, conf, depth, conf)
         return Outputs(**result)

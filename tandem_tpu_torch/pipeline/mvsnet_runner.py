@@ -11,7 +11,8 @@ caller's stream. On the CPU the call runs synchronously.
 
 Input packing parity (dr_mvsnet.cpp:180-250):
 - views reordered ref-first: [ref, others in original order], ref = V - 2
-- BGR uint8 -> RGB float / 255
+- BGR uint8 -> RGB uint8 (1, V, 3, H, W) on the host, the JAX runner's
+  layout; uploaded as uint8 and divided by 255 on the device
 - per-stage intrinsics by naive 0.25x/0.5x scaling (core/camera.py)
 - call-order protocol asserts (dr_mvsnet.cpp:100-107,315-318).
 
@@ -30,7 +31,7 @@ import torch
 from ..core.camera import stage_intrinsics_runtime
 from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet
-from ..models.edge_filter import depth_filter_edges
+from ..models.edge_filter import filter_edges
 
 
 class MvsnetRunner:
@@ -49,6 +50,9 @@ class MvsnetRunner:
             variables, view_aggregation=model.view_aggregation))
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype
+        # A tensor, not a Python float: CUDA turns ``x / 255.0`` into a
+        # multiply by the rounded reciprocal, ``x / tensor`` divides.
+        self._u8_scale = torch.tensor(255.0, device=self.device)
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._event = None
@@ -65,18 +69,26 @@ class MvsnetRunner:
                     cam_to_worlds: Sequence[np.ndarray], K: np.ndarray,
                     ref_index: Optional[int] = None):
         """bgrs: V arrays (H, W, 3) uint8 BGR; cam_to_worlds: V (4, 4).
-        Returns numpy (1, V, 3, H, W) float RGB in [0, 1], 3 x (1, 3, 3)
-        stage intrinsics and (1, V, 4, 4) poses, reference view first."""
+        Returns numpy (1, V, 3, H, W) uint8 RGB, 3 x (1, 3, 3) stage
+        intrinsics and (1, V, 4, 4) poses, reference view first."""
         assert len(bgrs) == self.view_num
         ref_index = self.view_num - 2 if ref_index is None else ref_index
         bgrs = self.reorder_ref_first(list(bgrs), ref_index)
         poses = self.reorder_ref_first(list(cam_to_worlds), ref_index)
-        rgb = np.stack([np.asarray(b, np.uint8)[..., ::-1] for b in bgrs])
-        image = (rgb.astype(np.float32) / 255.0).transpose(0, 3, 1, 2)[None]
+        H, W = np.shape(bgrs[0])[:2]
+        image = np.empty((1, len(bgrs), 3, H, W), np.uint8)
+        for v, bgr in enumerate(bgrs):   # HWC BGR -> CHW RGB, view by view
+            image[0, v] = np.asarray(bgr, np.uint8).transpose(2, 0, 1)[::-1]
         Ks = tuple(k[None] for k in
                    stage_intrinsics_runtime(np.asarray(K, np.float32)))
         c2w = np.stack(poses)[None].astype(np.float32)
-        return np.ascontiguousarray(image), Ks, c2w
+        return image, Ks, c2w
+
+    def normalize(self, image):
+        """uint8 image tensor on the runner's device -> float32 / 255,
+        equal to numpy's ``u8.astype(np.float32) / 255.0`` for all 256
+        values."""
+        return image.float() / self._u8_scale
 
     # --- async protocol --------------------------------------------------
     def ready(self) -> bool:
@@ -90,7 +102,7 @@ class MvsnetRunner:
 
     def _run(self, image, Ks, c2w, depth_min, depth_max, discard):
         dev = self.device
-        out = self.model(torch.from_numpy(image).to(dev, non_blocking=True),
+        out = self.model(self.normalize(torch.from_numpy(image).to(dev)),
                          [torch.from_numpy(k).to(dev) for k in Ks],
                          torch.from_numpy(c2w).to(dev),
                          torch.full((1,), depth_min, device=dev),
@@ -99,9 +111,8 @@ class MvsnetRunner:
         # The edge filter is a pure post-pass (cva_mvsnet.py:165-177); the
         # discard share stays on the host so the threshold rank needs no
         # device sync.
-        fdepth, mask = depth_filter_edges(depth, torch.full((1,), discard))
-        fconf = torch.where(mask, torch.zeros_like(conf), conf)
-        return fdepth, fconf, depth, conf
+        filtered = filter_edges(depth, torch.full((1,), discard), conf)
+        return filtered.depth, filtered.conf, depth, conf
 
     def call_async(self, bgrs, cam_to_worlds, K, depth_min: float,
                    depth_max: float, discard_percentage: float = 10.0,

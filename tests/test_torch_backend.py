@@ -77,9 +77,9 @@ def test_backend_slice_matches_jax():
 
 
 def test_runner_packing_and_protocol_match_jax():
-    """Ref-first reorder (ref = V-2), BGR uint8 -> RGB/255 and the naive
-    stage intrinsics equal the JAX runner's packing; the call-order
-    asserts hold."""
+    """Ref-first reorder (ref = V-2), BGR uint8 -> RGB uint8 (1, V, 3, H,
+    W) and the naive stage intrinsics equal the JAX runner's packing, dtype
+    included; the call-order asserts hold."""
     K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
     bgrs, poses, _ = _windows(1)[0]
     bgrs = [b.copy() for b in bgrs]
@@ -91,7 +91,8 @@ def test_runner_packing_and_protocol_match_jax():
                       variables, H, W, view_num=V, device="cpu")
     img_j, Ks_j, c2w_j = jr.pack_inputs(bgrs, poses, K)
     img_t, Ks_t, c2w_t = tr.pack_inputs(bgrs, poses, K)
-    np.testing.assert_array_equal(img_t, img_j.astype(np.float32) / 255.0)
+    assert img_t.dtype == img_j.dtype == np.uint8
+    np.testing.assert_array_equal(img_t, img_j)
     for a, b in zip(Ks_t, Ks_j):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(c2w_t, c2w_j)
@@ -108,6 +109,47 @@ def test_runner_packing_and_protocol_match_jax():
     assert set(res) == {"depth", "confidence", "depth_dense",
                         "confidence_dense"}
     assert res["depth"].shape == (H, W) and np.isfinite(res["depth"]).all()
+
+
+def _runner():
+    jm = JCvaMVSNet(depth_num=DEPTH_NUM, view_aggregation=True)
+    variables = random_variables(jm, H, W, V, seed=5)
+    return MvsnetRunner(CvaMVSNet(depth_num=DEPTH_NUM, view_aggregation=True),
+                        variables, H, W, view_num=V, device="cpu")
+
+
+def test_runner_normalization_equals_numpy():
+    """The runner's uint8 -> [0, 1] step (the same code runs on the card)
+    equals numpy's ``u8.astype(np.float32) / 255.0`` for all 256 values,
+    bit for bit."""
+    u8 = np.arange(256, dtype=np.uint8)
+    got = _runner().normalize(torch.from_numpy(u8)).numpy()
+    want = u8.astype(np.float32) / 255.0
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_runner_uint8_upload_equals_float_path():
+    """The runner's outputs equal the model run on numpy's float image
+    (u8 / 255 on the host, the path the runner took before) followed by
+    the edge filter, bit for bit."""
+    from tandem_tpu_torch.models.edge_filter import filter_edges
+    K = np.array([[FX, 0, CX], [0, FY, CY], [0, 0, 1]], np.float32)
+    bgrs, poses, _ = _windows(1)[0]
+    runner = _runner()
+    runner.call_async(bgrs, poses, K, 0.5, 6.0)
+    got = runner.get_result()
+    img, Ks, c2w = runner.pack_inputs(bgrs, poses, K)
+    out = runner.model(torch.from_numpy(img.astype(np.float32) / 255.0),
+                       [torch.from_numpy(k) for k in Ks],
+                       torch.from_numpy(c2w), torch.full((1,), 0.5),
+                       torch.full((1,), 6.0)).stage3
+    filtered = filter_edges(out.depth, torch.full((1,), 10.0),
+                            out.confidence)
+    for key, want in (("depth", filtered.depth), ("confidence", filtered.conf),
+                      ("depth_dense", out.depth), ("confidence_dense",
+                                                   out.confidence)):
+        np.testing.assert_array_equal(got[key], want[0].numpy())
 
 
 def test_entry_points_default_to_the_card():

@@ -17,7 +17,9 @@ from tandem_tpu_torch.models.layers import DeconvBnRelu
 from tandem_tpu_torch.ops.bilinear_index import (bilinear_index,
                                                  bilinear_index_plain)
 from tandem_tpu_torch.ops.corner_blend import corner_blend, corner_blend_plain
-from tandem_tpu_torch.ops.edge_kth import edge_kth_plain, edge_kth_value
+from tandem_tpu_torch.ops.edge_kth import (KERNELS_PER_CALL, MAX_BATCH,
+                                           edge_filter, edge_filter_plain,
+                                           edge_kth_plain, edge_kth_value)
 from tandem_tpu_torch.ops.bilinear_sample import pack_corners
 from tandem_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 
@@ -69,6 +71,124 @@ def test_depth_filter_edges_card_equals_cpu(dev):
     fd_g, m_g = depth_filter_edges(depth.to(dev), discard)
     assert torch.equal(m_g.cpu(), m_c)
     assert torch.equal(fd_g.cpu(), fd_c)
+
+
+def _filter_case(kind: str, shape):
+    """depth, conf (CUDA-ready numpy) and ranks k = 0, the 10% discard
+    and N - 1 over the images."""
+    rng = np.random.RandomState(4)
+    if kind == "all_equal":
+        depth = np.full(shape, 1.5, np.float32)
+    elif kind == "heavy":
+        depth = (np.clip(np.abs(rng.standard_cauchy(shape)), 0, 1e6)
+                 * 1e-3).astype(np.float32)
+    else:
+        depth = _depth(kind, shape)
+    n = shape[1] * shape[2]
+    ranks = [(0, int(np.float32(n * 0.9)), n - 1)[b % 3]
+             for b in range(shape[0])]
+    return depth, rng.rand(*shape).astype(np.float32), ranks
+
+
+@pytest.mark.parametrize("with_conf", [True, False])
+@pytest.mark.parametrize("kind", ["random", "tied", "border", "all_equal",
+                                  "heavy"])
+@pytest.mark.parametrize("shape", [(3, 61, 83), (1, 120, 160), (3, 37, 5)])
+def test_edge_filter_kernel_equals_plain(dev, kind, shape, with_conf):
+    """The whole filter, kernel against plain: depth, confidence and mask
+    equal, and the threshold equal to torch.kthvalue of the edge values."""
+    depth, conf, ranks = _filter_case(kind, shape)
+    d = torch.from_numpy(depth).to(dev)
+    c = torch.from_numpy(conf).to(dev) if with_conf else None
+    before = edge_filter.launches
+    got = edge_filter(d, ranks, c)
+    torch.cuda.synchronize()
+    assert edge_filter.launches == before + KERNELS_PER_CALL
+    ref = edge_filter_plain(d, ranks, c)
+    assert got.mask.dtype == torch.bool
+    for a, b in zip(got, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+    edge = edge_kth_plain(d).reshape(shape[0], -1)
+    kth = torch.stack([torch.kthvalue(edge[b], k + 1).values
+                       for b, k in enumerate(ranks)])
+    assert torch.equal(got.threshold, kth)
+
+
+def test_edge_filter_device_launches_a_call(dev):
+    """At most 5 device launches a call (the memset of the histograms and
+    four kernels), no host-to-device copy, and the kernels the profiler
+    sees are the launches the wrapper counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    depth, conf, ranks = _filter_case("random", (1, 480, 640))
+    d, c = torch.from_numpy(depth).to(dev), torch.from_numpy(conf).to(dev)
+    edge_filter(d, ranks, c)
+    torch.cuda.synchronize()
+    before = edge_filter.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        edge_filter(d, ranks, c)
+        torch.cuda.synchronize()
+    events = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
+    assert 0 < sum(e.count for e in events) <= KERNELS_PER_CALL + 1
+    assert not any("Memcpy" in e.key for e in events), [e.key for e in events]
+    kernels = sum(e.count for e in events if "Memset" not in e.key)
+    assert kernels == edge_filter.launches - before == KERNELS_PER_CALL
+
+
+def test_edge_filter_rejects_bad_input(dev):
+    d = torch.zeros((1, 8, 8), device=dev)
+    with pytest.raises(ValueError):
+        edge_filter(d.double(), [0])
+    with pytest.raises(ValueError):
+        edge_filter(torch.zeros((1, 8, 16), device=dev)[..., ::2], [0])
+    with pytest.raises(ValueError):
+        edge_filter(d, [0], torch.zeros((1, 8, 8)))
+    with pytest.raises(ValueError):
+        edge_filter(torch.zeros((MAX_BATCH + 1, 8, 8), device=dev),
+                    [0] * (MAX_BATCH + 1))
+
+
+def test_runner_normalization_on_card(dev):
+    """uint8 -> [0, 1] on the card equals numpy's / 255.0 for all 256
+    values (the runner divides by a tensor, not a Python float)."""
+    from tandem_tpu_torch.pipeline import mvsnet_runner
+    runner = object.__new__(mvsnet_runner.MvsnetRunner)
+    runner._u8_scale = torch.tensor(255.0, device=dev)
+    u8 = np.arange(256, dtype=np.uint8)
+    got = runner.normalize(torch.from_numpy(u8).to(dev)).cpu().numpy()
+    want = u8.astype(np.float32) / 255.0
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_f32_golden_forward_is_deterministic(dev):
+    """The trained 640x480 unit's f32 forward, twice in one process: all
+    12 outputs equal bit for bit (the model pins cuDNN to deterministic
+    algorithms)."""
+    import json
+    from pathlib import Path
+
+    from tandem_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 load_variables)
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    unit = Path(__file__).resolve().parent.parent / "exported" / "tandem"
+    cfg = json.loads((unit / "model_config.json").read_text())
+    model = CvaMVSNet(**cfg)
+    model.load_state_dict(flax_to_state_dict(
+        load_variables(unit / "model_variables.pkl"),
+        view_aggregation=model.view_aggregation))
+    model = model.to(dev).eval()
+    pack = np.load(unit / "sample_inputs.npz")
+    args = (torch.from_numpy(pack["image"].astype(np.float32) / 255.0).to(dev),
+            [torch.from_numpy(pack[k]).to(dev) for k in ("K1", "K2", "K3")],
+            torch.from_numpy(pack["cam_to_world"]).to(dev),
+            torch.from_numpy(pack["depth_min"]).to(dev),
+            torch.from_numpy(pack["depth_max"]).to(dev),
+            torch.full((1,), float(pack["discard_percentage"])))
+    first, second = model(*args), model(*args)
+    for a, b in zip(first, second):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
 
 
 # --- P5 bilinear_index, P3 corner_blend, row_gather (P1/P2/P4) -------------
