@@ -18,10 +18,10 @@ Phases, each printing its numbers before the last line:
               card, exact (torch.equal), with both times: the edge filter
               edge_filter (csrc/edge_kth.cu: K1's selection, an exact
               radix-select threshold, mask and zeroing) at 480x640,
-              120x160, 240x320 and 61x83, B = 1 and 3, five depth cases,
-              k = 0, N-1 and the 10% discard, its threshold equal to
-              torch.kthvalue, with the CUDA event and profiler device times
-              of the op, K1 alone, the composition it replaced (K1,
+              120x160, 240x320, 192x256 and 61x83, B = 1 and 3, five depth
+              cases, k = 0, N-1 and the 10% discard, its threshold equal
+              to torch.kthvalue, with the CUDA event and profiler device
+              times of the op, K1 alone, the composition it replaced (K1,
               torch.kthvalue, two wheres) and torch.kthvalue alone;
               P5 bilinear_index and P3 corner_blend in f32 and bf16 at
               the three stage shapes of abl04 640x480; the plane-sweep
@@ -32,7 +32,9 @@ Phases, each printing its numbers before the last line:
               bilinear_sample on given positions, with its CUDA event and
               profiler device times, its bound, the old path (positions,
               pack_corners, P5, P3) and grid_sample on the same positions
-              by both clocks, and the wrapper's host cost per call;
+              by events (and by the profiler at stage 1 bf16, the kernel's
+              row in the result), and the wrapper's host cost per call; both
+              modes exact also at the slam phase's 256x192 stage shapes;
               row_gather, also at P4's shape;
   4. track kernels  K6 track_reduce against a float64 evaluation of its
               plain version at the tracker's level caps (640x480 level 0,
@@ -49,8 +51,8 @@ Phases, each printing its numbers before the last line:
               the end point against lm_level_plain on the card (pose within
               LM_POSE_PX pixels of the level, aff within LM_AFF_TOL, unless
               the paths parted at a near-tie, never at the 640x480 cap),
-              iteration counts, both times; and the level's time for each
-              CHECK_EVERY;
+              iteration counts, the kernel's time (and the plain level's
+              at the 640x480 cap);
   5. probes   the torch ports of the three Pallas probe scripts at their
               own shapes (tandem_tpu_torch/experiments), M rows/s;
   6. golden   the trained abl04 unit (exported/tandem, 640x480, V=7)
@@ -84,7 +86,20 @@ Phases, each printing its numbers before the last line:
               windows (trained abl04, f32), the reference at frame 10, the
               8 frames after it tracked: worst position error within
               MVS_TRACK_BOUND; K1, bilinear_sample, K6 and track_lm must
-              have launched.
+              have launched;
+ 14. slam     the port's tandem_dataset CLI (the SLAM loop: joint
+              initializer, tracking with the retry ladder, immature-point
+              tracing, windowed BA, marginalization, the backend, mesh) on
+              the fixture's 64 frames, VO only and then the full pipeline
+              with the trained unit (bf16, boot golden self-check) twice:
+              >= SLAM_MIN_FRAMES frames and ATE (Sim3) < SLAM_ATE_BOUND in
+              every run; the full runs call the backend, write a non-empty
+              mesh, launch K1's filter, bilinear_sample, track_lm and K6,
+              and give the same result.txt sha256 (else the first aten op
+              that differs is named); frames, seconds, FPS, the Timer split
+              per stage, host reads a frame, the calls of the torch-op hot
+              spots K7, K8, K11 and _corner_grids a frame or keyframe and
+              their CUDA-event ms a call with a bound.
 The launch counters are set to 0 just before each driven path (the probes,
 the slices, the three tracking paths) and read just after it. The last line
 of stdout is the JSON result; any failed phase exits non-zero without it.
@@ -127,6 +142,10 @@ GT_TRACK_BOUND = 5e-3        # m; the JAX package gets ~1 mm on this loop
 # m; 1.5 x the JAX package's worst error on the same loop on the CPU
 # (tests/test_torch_tracker.py::test_track_against_the_mvs_model).
 MVS_TRACK_BOUND = 0.0532
+# The SLAM loop on the trajectory fixture: tests/test_vo_ate.py's bars
+# (the JAX package on the CPU reads 10.26 mm VO only, 10.15 mm full).
+SLAM_ATE_BOUND = 0.030
+SLAM_MIN_FRAMES = 56
 # track_lm, one step against float64 (phase track lm (a)). dx must solve
 # the kernel's own damped system to a componentwise backward error of
 # LM_SOLVE_TOL, |Hl dx + g| / (|Hl| |dx| + |g|) (the f32 plain step: <=
@@ -192,6 +211,9 @@ SAMPLE_OPS = 40
 # abl04 at 640x480: per stage (depth planes, H, W, feature channels).
 STAGE_SHAPES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
                 "stage3": (4, 480, 640, 8)}
+# The same at 256x192, the slam phase's fixture.
+SLAM_STAGE_SHAPES = {"stage1": (48, 48, 64, 32), "stage2": (4, 96, 128, 16),
+                     "stage3": (4, 192, 256, 8)}
 # Every hand kernel: where it lives and which Pallas kernels it replaces.
 KERNELS = {
     "edge_kth": ("tandem_tpu_torch/csrc/edge_kth.cu",
@@ -451,7 +473,7 @@ def _edge_kth(dev, out: dict):
     from tandem_tpu_torch.utils.cuda_timing import cuda_ms
     rng = np.random.RandomState(0)
     checked, err = 0, 0.0
-    for H, W in ((480, 640), (120, 160), (240, 320), (61, 83)):
+    for H, W in ((480, 640), (120, 160), (240, 320), (192, 256), (61, 83)):
         n = H * W
         k10 = int(np.float32(n * 0.9))
         for kind in ("random", "tied", "border", "all_equal", "heavy"):
@@ -479,7 +501,8 @@ def _edge_kth(dev, out: dict):
                         checked += 1
     log(f"[kernels] edge_filter: {checked} calls equal to the plain version "
         f"(depth, confidence, mask) with the threshold equal to "
-        f"torch.kthvalue: 480x640, 120x160, 240x320, 61x83; B = 1, 3; "
+        f"torch.kthvalue: 480x640, 120x160, 240x320, 192x256 (the slam "
+        f"path's), 61x83; B = 1, 3; "
         f"random, tied, border, all-equal, heavy-tailed; k = 0, N-1 and the "
         f"10% discard; with and without confidence; K1 alone equal")
 
@@ -614,15 +637,15 @@ def _sample_kernels(dev, out: dict):
 
 
 def _golden_sweep(dev, stage: str, D: int, H: int, W: int,
-                  behind: bool = False):
+                  behind: bool = False, shapes: dict = STAGE_SHAPES):
     """The plane sweep of the golden pack's view 0 (reference) from view 1
-    (source) at one abl04 stage: the stage's intrinsics, and the depth
-    hypotheses as the model makes them (uniform at stage 1; adaptive
-    around the pack's upsampled depth of the stage before after it).
-    ``behind`` moves the source camera forward by the median hypothesis,
-    so that about half of the sweep lies behind it. Returns the ref->src
-    matrix (1, 3, 4), the depth (1, D, H, W) and the cameras (K, src,
-    ref)."""
+    (source) at one abl04 stage of ``shapes``: the stage's intrinsics
+    (the pack's, scaled to W), and the depth hypotheses as the model makes
+    them (uniform at stage 1; adaptive around the pack's upsampled depth of
+    the stage before after it). ``behind`` moves the source camera forward
+    by the median hypothesis, so that about half of the sweep lies behind
+    it. Returns the ref->src matrix (1, 3, 4), the depth (1, D, H, W) and
+    the cameras (K, src, ref)."""
     import torch
 
     from tandem_tpu_torch.models.layers import interpolate_bilinear
@@ -634,9 +657,10 @@ def _golden_sweep(dev, stage: str, D: int, H: int, W: int,
         ratios = json.load(f)["depth_interval_ratio"]
     i = int(stage[-1]) - 1
     K = torch.from_numpy(pack[f"K{i + 1}"]).to(dev)
+    K[..., :2, :] *= W / STAGE_SHAPES[stage][2]
     c2w = torch.from_numpy(pack["cam_to_world"]).to(dev)
     src, ref = c2w[:, 1].clone(), c2w[:, 0].contiguous()
-    D1, H1, W1, _ = STAGE_SHAPES["stage1"]
+    D1, H1, W1, _ = shapes["stage1"]
     depth, base = uniform_depth_range(
         depth_min=torch.from_numpy(pack["depth_min"]).to(dev),
         depth_max=torch.from_numpy(pack["depth_max"]).to(dev),
@@ -806,9 +830,12 @@ def _sweep_kernels(dev, out: dict):
                  "grid_sample": cuda_ms(library, iters=100),
                  "given positions": cuda_ms(
                      lambda: bilinear_sample(feat, x, y, keep), iters=100)}
-            dev_ms = {"kernel": _device_ms(kernel),
-                      "old": _device_ms(lambda: _old_sample(feat, mat, depth)),
-                      "grid_sample": _device_ms(library)}
+            dev_ms = {"kernel": _device_ms(kernel)}
+            reported = stage == "stage1" and dtype == torch.bfloat16
+            if reported:    # the old path and grid_sample by the profiler
+                dev_ms.update(old=_device_ms(
+                    lambda: _old_sample(feat, mat, depth)),
+                    grid_sample=_device_ms(library))
             bound = _bound(_nbytes(feat, mat, depth, got),
                            got.numel() // C * (SAMPLE_OPS + 7 * C))
             log(f"[kernels] warp_sample {stage} {dn} D={D} {W}x{H} C={C}: "
@@ -819,22 +846,47 @@ def _sweep_kernels(dev, out: dict):
                 f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}): share "
                 f"{bound['bound_ms'] / dev_ms['kernel']:.1%} of the device "
                 f"time; plain {t['plain']:.4f} ms; old path (positions, "
-                f"pack_corners, P5, P3) {t['old']:.4f} ms (events) "
-                f"{dev_ms['old']:.4f} ms (device); grid_sample on the "
-                f"positions {t['grid_sample']:.4f} ms (events) "
-                f"{dev_ms['grid_sample']:.4f} ms (device); bilinear_sample "
-                f"on given positions {t['given positions']:.4f} ms (events)")
+                f"pack_corners, P5, P3) {t['old']:.4f} ms (events"
+                + (f", {dev_ms['old']:.4f} ms device" if reported else "")
+                + f"); grid_sample on the positions {t['grid_sample']:.4f} "
+                f"ms (events"
+                + (f", {dev_ms['grid_sample']:.4f} ms device" if reported
+                   else "")
+                + f"); bilinear_sample on given positions "
+                f"{t['given positions']:.4f} ms (events)")
             if stage == "stage2" and dtype == torch.float32:
                 host = _host_cost(dev, feat, mat, depth, cams, library)
                 log("[kernels] host cost a call (perf_counter, 500 calls, "
                     "stage 2 f32): " + ", ".join(
                         f"{k} {v:.2f} us" for k, v in host.items()))
-            if stage == "stage1" and dtype == torch.bfloat16:
+            if reported:
                 res.update(ms=t["kernel"], plain_ms=t["plain"],
                            device_ms=dev_ms["kernel"],
                            library_ms=t["grid_sample"],
                            library="grid_sample on the warp's positions",
                            **bound)
+    # The slam phase feeds the kernel the 256x192 stages: exact there too.
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for stage, (D, H, W, C) in SLAM_STAGE_SHAPES.items():
+            feat = torch.randn((1, H, W, C), generator=gen,
+                               device=dev).to(dtype)
+            for behind in (True, False):
+                mat, depth, _ = _golden_sweep(dev, stage, D, H, W, behind,
+                                              SLAM_STAGE_SHAPES)
+                res["max_abs_err"] = max(res["max_abs_err"], _exact(
+                    f"warp_sample {dn} {stage} {W}x{H} behind={behind}",
+                    warp_sample(feat, mat, depth),
+                    warp_sample_plain(feat, mat, depth)))
+            x, y, keep = (a.reshape(1, -1)
+                          for a in _warp_positions(dev, gen, D, H, W))
+            res["max_abs_err"] = max(res["max_abs_err"], _exact(
+                f"bilinear_sample {dn} {stage} {W}x{H}",
+                bilinear_sample(feat, x, y, keep),
+                bilinear_sample_plain(feat, x, y, keep)))
+    log("[kernels] warp_sample and bilinear_sample exact at the slam "
+        "path's 256x192 stages too (D 48/4/4, C 32/16/8; f32 and bf16; "
+        "with and without the sweep behind the source camera)")
     out["bilinear_sample"] = res
 
 
@@ -1465,8 +1517,10 @@ def phase_track_lm(dev, out: dict):
                 raise AssertionError(f"{where}: T {d_T:.3e} aff {d_aff:.3e} "
                                      f"past {tol_T:.3e} / {LM_AFF_TOL}")
             ms = cuda_ms(lambda: tl.lm_level(*case, max_iter))
+            # The plain level (host-bound, ~50 steps of eager ops) is timed
+            # at the 640x480 cap only, the kernel's row in the result.
             plain_ms = cuda_ms(lambda: tl.lm_level_plain(*case, max_iter),
-                               iters=5, warmup=1)
+                               iters=5, warmup=1) if i == 0 else None
             res[(N, B)] = (ms, plain_ms, its, d_T, _track_bound(
                 *case[:4], got[:4], its[0] + 1))
             log(f"[track lm] (b) N={N} level {W}x{H} B={B} max_iter "
@@ -1479,20 +1533,8 @@ def phase_track_lm(dev, out: dict):
                 f"to its steps; end point vs lm_level_plain: pose {d_T:.3e} "
                 f"(tol {tol_T:.3e}), aff {d_aff:.3e} (tol {LM_AFF_TOL})"
                 f"{'' if close else ', paths parted'}; iterations kernel "
-                f"{its[0]} plain {its[1]}; level kernel {ms:.4f} ms plain "
-                f"{plain_ms:.4f} ms")
-    # How often the host reads the active flag: each level's time for each
-    # CHECK_EVERY (0: never, all max_iter steps launched).
-    for i in (0, 4):
-        N, H, W, max_iter = shapes[i]
-        for B in (1, 15):
-            case = _track_case(dev, N, B, H, W, 10 * i + B)
-            sweep = {k: cuda_ms(lambda: tl.lm_level(*case, max_iter,
-                                                    check_every=k))
-                     for k in (1, 2, 4, 8, 16, 0)}
-            log(f"[track lm] check_every sweep N={N} {W}x{H} B={B} "
-                f"max_iter {max_iter} (iterations {res[(N, B)][2][0]}): "
-                + ", ".join(f"k={k} {v:.4f} ms" for k, v in sweep.items()))
+                f"{its[0]} plain {its[1]}; level kernel {ms:.4f} ms"
+                + (f" plain {plain_ms:.4f} ms" if plain_ms else ""))
     ms, plain_ms, its, d_T, bound = res[(shapes[0][0], 15)]
     log(f"[track lm] N={shapes[0][0]} B=15: bound {bound} for "
         f"{its[0] + 1} evaluations; worst over (a) and (b) {worst}")
@@ -1863,6 +1905,254 @@ def phase_culled(dev, backend, pack):
                   np.eye(4, dtype=np.float32))
 
 
+def _slam_run(dev, out_dir: Path, mvsnet: bool,
+              count_syncs: bool = False) -> dict:
+    """One run of the port's tandem_dataset CLI on the trajectory fixture;
+    its ATE against the GT poses, the launches of each kernel in the run
+    and, with ``count_syncs``, the host reads (synchronizing CUDA calls,
+    by torch's sync debug mode)."""
+    import warnings
+
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_dataset
+    from tandem_tpu_torch.eval.ate import (associate, evaluate_ate,
+                                           load_tum_trajectory, tum_to_xyz)
+    from tandem_tpu_torch.mapping.mesh import _corner_grids
+    from tandem_tpu_torch.tracking.ba import _system_terms
+    from tandem_tpu_torch.tracking.immature import trace_points
+    from tandem_tpu_torch.tracking.initializer import _calc_res_gs
+    argv = ["preset=dataset", f"files={FIXTURE / 'images'}",
+            f"calib={FIXTURE / 'camera_dso.txt'}", f"result_folder={out_dir}",
+            "dr_timing=1"]
+    if mvsnet:
+        argv.append(f"mvsnet_folder={UNIT}")
+    ops = (_system_terms, trace_points, _calc_res_gs, _corner_grids)
+    for fn in ops:
+        fn.calls = 0
+    torch.cuda.synchronize()
+    reset_counts()
+    calls0 = edge_calls()
+    syncs = None
+    if count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            res = tandem_dataset.main(argv, device=dev)
+        torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in seen)
+    else:
+        res = tandem_dataset.main(argv, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    gt = load_tum_trajectory(str(FIXTURE / "gt_tum.txt"))
+    est = load_tum_trajectory(str(out_dir / "result.txt"))
+    matches = associate(gt, est)
+    ate = evaluate_ate(tum_to_xyz(gt, [a for a, _ in matches]),
+                       tum_to_xyz(est, [b for _, b in matches]),
+                       with_scale=True)
+    fs = res["fs"]
+    return {"res": res, "counts": counts, "edge_calls": edge_calls() - calls0,
+            "pairs": len(matches), "ate": ate, "syncs": syncs,
+            "kfs": len(fs.keyframes), "op_calls": {
+                "K7": _system_terms.calls, "K8": trace_points.calls,
+                "K11": _calc_res_gs.calls, "corner_grids": _corner_grids.calls},
+            "digest": __import__("hashlib").sha256(
+                (out_dir / "result.txt").read_bytes()).hexdigest()}
+
+
+def _first_differing_op(dev, out_dir: Path, frame: int) -> str:
+    """Two more full runs to ``frame``, every aten op traced with a
+    checksum of its outputs: the first op that differs."""
+    from tandem_tpu_torch.cli import tandem_dataset
+    from tandem_tpu_torch.experiments.determinism import _checksum
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Trace(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if getattr(t, "is_cuda", False) and t.numel():
+                    self.seen.append((str(func), int(_checksum(t))))
+            return out
+
+    traces = []
+    for k in range(2):
+        argv = ["preset=dataset", f"files={FIXTURE / 'images'}",
+                f"calib={FIXTURE / 'camera_dso.txt'}",
+                f"result_folder={out_dir / f'trace{k}'}",
+                f"mvsnet_folder={UNIT}", f"end={frame + 1}"]
+        with Trace() as trace:
+            tandem_dataset.main(argv, device=dev)
+        traces.append(trace.seen)
+    for i, (a, b) in enumerate(zip(*traces)):
+        if a != b:
+            return f"op {i} of the run to frame {frame}: {a[0]}"
+    return (f"no op of the run to frame {frame} differs "
+            f"({len(traces[0])} ops)")
+
+
+def _slam_op_times(dev, fs, backend) -> dict:
+    """CUDA-event ms a call of the SLAM loop's torch-op hot spots on the
+    run's final state, with a bound from their shapes: K7 (_system_terms +
+    _assemble on the BA window), K8 (trace_points of the newest keyframe's
+    immature points against the last frame), K11 (_calc_res_gs at level 0
+    of the initializer's lists against the last keyframe's image) and the
+    mesh's _corner_grids on 512 allocated blocks."""
+    import torch
+
+    from tandem_tpu_torch.core.pyramid import (build_pyramid,
+                                               pyramid_intrinsics)
+    from tandem_tpu_torch.mapping.mesh import _corner_grids
+    from tandem_tpu_torch.tracking.ba import _assemble, _system_terms
+    from tandem_tpu_torch.tracking.immature import trace_points
+    from tandem_tpu_torch.tracking.initializer import _calc_res_gs
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    out = {}
+    st, imgs, K = fs.ba_state, fs.slot_images, fs.K
+    F, N = st.poses.shape[0], st.pt_valid.shape[0]
+    P = 8 * F + 4
+    rows = N * F * 8
+    k7 = lambda: _assemble(st, *_system_terms(st, imgs, K)[:5])  # noqa
+    # H_ff alone: rows x P x P multiply-adds; G (rows x P f32) written and
+    # read twice (G and w G), the images read once.
+    out["K7"] = {"ms": cuda_ms(k7, iters=10),
+                 "system_terms_ms": cuda_ms(
+                     lambda: _system_terms(st, imgs, K), iters=10),
+                 **_bound(3 * rows * P * 4 + imgs.numel() * 4,
+                          2.0 * rows * P * P),
+                 "shape": f"N {N} x F {F} x 8 rows, P {P}"}
+    kf = fs.keyframes[-1]
+    pts = kf.immature
+    host = torch.from_numpy(kf.c2w.astype(np.float32)).to(dev)
+    tgt = torch.from_numpy(fs.last_c2w.astype(np.float32)).to(dev)
+    n, S = pts.uv.shape[0], 32
+    out["K8"] = {"ms": cuda_ms(lambda: trace_points(pts, host, tgt,
+                                                    fs.slot_images[0], K),
+                               iters=20),
+                 # 4 corners x 8 pattern x S samples gathered per point,
+                 # ~40 operations a pattern sample.
+                 **_bound(n * 4 * 20 + kf.image.numel() * 4,
+                          n * S * 8 * 40),
+                 "shape": f"{n} points x {S} samples x 8"}
+    ist = fs.init_state
+    pyr = build_pyramid(kf.image, 6)
+    Kl = pyramid_intrinsics(*K, 6)[0]
+    H, W = kf.image.shape
+    const = (ist.pu[0], ist.pv[0], ist.pcolor[0], ist.pvalid[0],
+             (pyr[0]["img"], pyr[0]["gx"], pyr[0]["gy"]), H, W, Kl)
+    n0 = ist.pu[0].shape[0]
+    out["K11"] = {"ms": cuda_ms(lambda: _calc_res_gs(
+        ist.T, ist.aff, ist.idepth[0], ist.is_good[0], ist.energy[0],
+        ist.iR[0], const, ist.snapped), iters=20),
+        # 8 pattern samples of 3 planes a point, ~150 operations each, and
+        # the 8x8 normal equations (64 multiply-adds a sample).
+        **_bound(n0 * 4 * 16 + 3 * H * W * 4, n0 * 8 * (150 + 128)),
+        "shape": f"{n0} points x 8 at {W}x{H}"}
+    if backend is not None and backend.volume.n_allocated:
+        C = min(512, backend.volume.n_allocated)
+        slots = torch.arange(C, device=dev)
+        looks = C * 9 ** 3
+        out["corner_grids"] = {
+            "ms": cuda_ms(lambda: _corner_grids(backend.cfg, backend.volume,
+                                                slots), iters=20),
+            # per corner: the page-table and four voxel words read, five
+            # words written
+            **_bound(looks * (4 + 20 + 20), looks * 30),
+            "shape": f"{C} blocks x 9^3 corners"}
+    return out
+
+
+def phase_slam(dev) -> dict:
+    """The port's tandem_dataset CLI on tests/fixtures/replica_traj (64
+    frames, 256x192, preset=dataset): VO only, then the full pipeline with
+    the trained abl04 unit (bf16, boot golden self-check) twice. Each run
+    must associate >= SLAM_MIN_FRAMES frames with ATE (Sim3) under
+    SLAM_ATE_BOUND; the full runs must call the backend, write a non-empty
+    mesh.obj, launch K1's filter, bilinear_sample, track_lm and
+    track_reduce inside the loop, and give the same result.txt sha256."""
+    import shutil
+    import tempfile
+
+    import torch
+    work = Path(tempfile.mkdtemp(prefix="slam_"))
+    runs = {}
+    try:
+        for tag, mvs, syncs in (("vo", False, False), ("full", True, True),
+                                ("full_again", True, False)):
+            runs[tag] = r = _slam_run(dev, work / tag, mvs, count_syncs=syncs)
+            res, timer = r["res"], r["res"]["timer"]
+            split = {k: (len(v), round(float(np.mean(v)), 3))
+                     for k, v in sorted(timer.intervals.items())}
+            nf = res["frames"]
+            log(f"[slam {tag}] {card_label_once()} frames {nf}, "
+                f"{res['seconds']:.3f} s, FPS {nf / res['seconds']:.3f}, "
+                f"keyframes {r['kfs']}; ATE {r['ate']['rmse'] * 1e3:.3f} mm "
+                f"(Sim3 scale {r['ate']['scale']:.4f}, {r['pairs']}/64 "
+                f"frames; bound {SLAM_ATE_BOUND * 1e3} mm); result.txt "
+                f"sha256 {r['digest']}")
+            log(f"[slam {tag}] Timer (count, mean ms, host clock): {split}")
+            log(f"[slam {tag}] calls: {r['op_calls']} "
+                f"({r['op_calls']['K8'] / nf:.2f} K8 a frame, "
+                f"{r['op_calls']['K7'] / max(r['kfs'], 1):.2f} K7 a "
+                f"keyframe); kernel launches {r['counts']}"
+                + (f"; host reads {r['syncs']} ({r['syncs'] / nf:.2f} a "
+                   f"frame)" if r["syncs"] is not None else ""))
+            if r["pairs"] < SLAM_MIN_FRAMES or not (
+                    r["ate"]["rmse"] < SLAM_ATE_BOUND):
+                raise AssertionError(
+                    f"slam {tag}: {r['pairs']} frames, ATE "
+                    f"{r['ate']['rmse'] * 1e3:.3f} mm")
+            require_launched(f"slam {tag}", r["counts"],
+                             ("track_reduce", "track_lm"))
+            if mvs:
+                backend = res["backend"]
+                verts = backend.last_mesh[0]
+                mesh_lines = (work / tag / "mesh.obj").read_text().count(
+                    "\nv ")
+                log(f"[slam {tag}] backend calls {backend.call_num}, "
+                    f"{backend.last_fuse}; mesh {len(verts)} vertices "
+                    f"({mesh_lines + 1} lines of v in mesh.obj); "
+                    + require_edge_filter(f"slam {tag}",
+                                          r["counts"]["edge_kth"],
+                                          r["edge_calls"], 1))
+                if backend.call_num < 1 or len(verts) == 0:
+                    raise AssertionError(f"slam {tag}: no backend call or an "
+                                         "empty mesh")
+                require_launched(f"slam {tag}", r["counts"],
+                                 ("bilinear_sample",))
+        if runs["full"]["digest"] != runs["full_again"]["digest"]:
+            a = (work / "full" / "result.txt").read_text().splitlines()
+            b = (work / "full_again" / "result.txt").read_text().splitlines()
+            frame = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         min(len(a), len(b)))
+            raise AssertionError("slam: a second full run gives another "
+                                 "result.txt; first differing " +
+                                 _first_differing_op(dev, work, frame))
+        log("[slam] the two full runs give the same result.txt sha256")
+        full = runs["full"]["res"]
+        times = _slam_op_times(dev, full["fs"], full["backend"])
+        log(f"[slam] torch-op hot spots, CUDA events ms a call on the full "
+            f"run's final state: {json.dumps(times)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"slam_vo": runs["vo"]["counts"],
+            "slam_full": runs["full"]["counts"],
+            "slam_full_again": runs["full_again"]["counts"]}
+
+
+def card_label_once() -> str:
+    from tandem_tpu_torch.utils.cuda_timing import card_label
+    if not hasattr(card_label_once, "label"):
+        card_label_once.label = card_label()
+    return card_label_once.label
+
+
 def main() -> int:
     import argparse
 
@@ -1886,12 +2176,25 @@ def main() -> int:
     torch.cuda.set_device(dev)
     t_start = time.perf_counter()
 
+    laps = {}
+    t_lap = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     kind = phase_device()
     phase_build()
+    lap("device+build")
     measured = phase_kernels(dev)
+    lap("kernels")
     phase_track_kernels(dev, measured)
+    lap("track kernels")
     phase_track_lm(dev, measured)
+    lap("track lm")
     paths = {"probes": phase_probes()}
+    lap("probes")
     for dtype, tol in ((torch.float32, GOLDEN_TOL),
                        (torch.bfloat16, BF16_TOL)):
         runner, pack = load_runner(dev, dtype)
@@ -1899,15 +2202,24 @@ def main() -> int:
         dn = str(dtype).split(".")[-1]
         paths[f"{dn}_slice"], backend = phase_slice(runner, pack, dev,
                                                     profile_dir)
+        lap(f"{dn} golden+slice")
         if dtype == torch.float32:
             paths["track_640x480"] = phase_track_640(dev, backend, pack,
                                                      profile_dir)
+            lap("track 640x480")
             phase_culled(dev, backend, pack)
+            lap("culled")
         del runner, backend
         torch.cuda.empty_cache()
     phase_wall(dev)
+    lap("wall")
     paths["track_gt"] = phase_track_gt(dev)
+    lap("track gt")
     paths["track_mvs"] = phase_track_mvs(dev)
+    lap("track mvs")
+    paths.update(phase_slam(dev))
+    lap("slam")
+    log(f"[time] seconds a phase (host clock): {laps}")
     log(f"[paths] launches by path: {paths} "
         f"({time.perf_counter() - t_start:.1f} s in all)")
     kernels = []

@@ -35,7 +35,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from ..utils.consts import const
 
 CHUNK = 8192  # blocks per integrate/render pass (bounds the temporaries)
 
@@ -541,3 +544,31 @@ def _fill_holes(depth):
                             torch.where(torch.isfinite(m), m,
                                         torch.zeros_like(m)))
     return depth
+
+
+def _get_voxels(cfg: TsdfConfig, vol: TsdfVolume, pts_w):
+    """Look up (sdf, weight, color) at world points: pts_w (N, 3) -> sdf
+    (N,), weight (N,), color (N, 3); unallocated points have weight 0."""
+    dev = pts_w.device
+    # Times the f32 reciprocal, as XLA compiles the JAX package's division
+    # by a constant (and CUDA a tensor / float).
+    def recip(x):
+        return const(float(np.float32(1) / np.float32(x)), dev)
+    vox = torch.floor(pts_w * recip(cfg.voxel_size)).to(torch.int32)
+    block = torch.floor(pts_w * recip(cfg.block_extent)).to(torch.int32)
+    return _voxels_at(cfg, vol, vox, block)
+
+
+def _voxels_at(cfg: TsdfConfig, vol: TsdfVolume, vox, block):
+    """``_get_voxels`` at integer voxel and block coordinates (N, 3)."""
+    b = cfg.block_size
+    local = (vox - block * b).clamp(0, b - 1).long()
+    flat_tab, in_arena = _table_index(cfg, block)
+    slot = vol.page_table[flat_tab]
+    allocated = (slot >= 0) & in_arena
+    slot_safe = torch.where(allocated, slot, torch.zeros_like(slot)).long()
+    li = (local[:, 2] * b + local[:, 1]) * b + local[:, 0]
+    w = vol.weight[slot_safe, li]
+    return (vol.tsdf[slot_safe, li], torch.where(allocated, w,
+                                                 torch.zeros_like(w)),
+            vol.color[slot_safe, li])

@@ -13,18 +13,20 @@ fuses is float32 either way. The fusion follows the JAX backend: integrate
 walks every allocated block when at least half of them are in the
 keyframe's frustum, else only the frustum-culled ones; the render at the
 next tracking reference splats, per axis, only the blocks whose surface can
-cross along that axis. Both culls are exact. Mesh extraction is not ported
-yet (``mesh_extraction_freq`` must be 0).
+cross along that axis. Both culls are exact. Every ``mesh_extraction_freq``
+calls, and on ``extract_mesh_now``, the global mesh is extracted
+(``mapping/mesh.py``).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from ..mapping.mesh import extract_mesh
 from ..mapping.tsdf import (TsdfConfig, allocate_blocks, create_volume,
                             grow_volume, integrate, integrate_culled,
                             render_depth_splat, surface_axis_slots,
@@ -56,18 +58,18 @@ class TandemBackend:
     """One-keyframe-lookahead orchestrator."""
 
     def __init__(self, mvsnet_runner, tsdf_cfg: TsdfConfig, K: np.ndarray,
-                 height: int, width: int, mesh_extraction_freq: int = 0,
-                 timer: Optional[Timer] = None):
-        if mesh_extraction_freq > 0:
-            raise NotImplementedError(
-                "mesh extraction (mapping/mesh.py) is not ported yet; "
-                "pass mesh_extraction_freq=0")
+                 height: int, width: int, mesh_extraction_freq: int = 10,
+                 timer: Optional[Timer] = None,
+                 mesh_callback: Optional[Callable] = None):
         self.runner = mvsnet_runner
         self.device = mvsnet_runner.device  # the TSDF lives beside MVSNet
         self.cfg = tsdf_cfg
         self.K = np.asarray(K, np.float32)
         self.H, self.W = height, width
         self.timer = timer or Timer(enabled=False)
+        self.mesh_freq = mesh_extraction_freq
+        self.mesh_callback = mesh_callback
+        self.last_mesh = None
 
         self.volume = create_volume(tsdf_cfg, self.device)
         self.depth_map = TrackingDepthMap()
@@ -91,6 +93,8 @@ class TandemBackend:
         tid = self.timer.start_timing("backend_call")
         if self._prev is not None:
             self._fuse_previous(next_ref_c2w)
+            if self.mesh_freq > 0 and self.call_num % self.mesh_freq == 0:
+                self.extract_mesh_now()
 
         ref_index = self.runner.view_num - 2
         self.runner.call_async(bgrs, cam_to_worlds, self.K, depth_min,
@@ -169,3 +173,19 @@ class TandemBackend:
 
     def get_tracking_depth_map(self) -> Optional[dict]:
         return self.depth_map.read()
+
+    def extract_mesh_now(self):
+        """Extract the current global mesh: (vertices, faces, colours);
+        the runtime also saves mesh.obj at shutdown
+        (main_tandem_pangolin.cpp:296-303)."""
+        tid = self.timer.start_timing("mesh")
+        self.last_mesh = extract_mesh(self.cfg, self.volume)
+        self.timer.end_timing("mesh", tid)
+        if self.mesh_callback:
+            self.mesh_callback(*self.last_mesh)
+        return self.last_mesh
+
+    def wait(self):
+        """Block until the outstanding MVSNet call has finished on the
+        runner's stream."""
+        self.runner.wait()

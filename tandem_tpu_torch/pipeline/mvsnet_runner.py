@@ -100,6 +100,12 @@ class MvsnetRunner:
         reference's Ready(), dr_mvsnet.cpp:100-107)."""
         return self._event is None or self._event.query()
 
+    def wait(self):
+        """Synchronize the runner's own CUDA stream (the reference's
+        Wait); on the CPU calls run synchronously."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def _run(self, image, Ks, c2w, depth_min, depth_max, discard):
         dev = self.device
         out = self.model(self.normalize(torch.from_numpy(image).to(dev)),
