@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: the keyframe map path in
-float32 and in bfloat16 (the JAX package's deployed dtype), and the dense
-coarse tracker tracking against the TSDF model.
+float32 and in bfloat16 (the JAX package's deployed dtype), the dense
+coarse tracker tracking against the TSDF model, the SLAM loop, and the
+training half (tandem_train, tandem_eval).
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
@@ -35,6 +36,14 @@ Phases, each printing its numbers before the last line:
               by events (and by the profiler at stage 1 bf16, the kernel's
               row in the result), and the wrapper's host cost per call; both
               modes exact also at the slam phase's 256x192 stage shapes;
+              the sample's backward kernel warp_sample_grad (the same
+              source) at the six abl04 points with B = 2 as training
+              gives it (the golden sweep with part of it behind the
+              source camera, and without): each item's float32 sums
+              within GRAD_TOL of its largest |gradient| of the plain
+              gradient in float64, with its event and profiler device
+              times, its byte bound and grid_sample's backward on the
+              same grid;
               row_gather, also at P4's shape;
   4. track kernels  K6 track_reduce against a float64 evaluation of its
               plain version at the tracker's level caps (640x480 level 0,
@@ -99,9 +108,24 @@ Phases, each printing its numbers before the last line:
               that differs is named); frames, seconds, FPS, the Timer split
               per stage, host reads a frame, the calls of the torch-op hot
               spots K7, K8, K11 and _corner_grids a frame or keyframe and
-              their CUDA-event ms a call with a bound.
+              their CUDA-event ms a call with a bound;
+ 15. train    the port's tandem_train CLI on replica_traj (abl04 config,
+              640x480, B = 2, f32): one epoch (7 steps) with its
+              checkpoint, a resume from it with --pretrained (to step 14);
+              the learning curve of tests/test_train_learns.py at abl04
+              640x480 (CURVE_STEPS steps on tuples 0 and 7: finite, the
+              last 5 losses' mean under half the first 5's) with the step
+              time and peak memory, and BF16_STEPS bf16 steps (finite,
+              falling); every step launches the forward sample and its
+              backward kernel 18 times each, and the first step of each
+              curve holds every backward call it made to the plain
+              gradient (GRAD_TOL, each batch item);
+ 16. eval     the port's tandem_eval CLI on replica_mini with the trained
+              512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
+              within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
-the slices, the three tracking paths) and read just after it. The last line
+the slices, the three tracking paths, the slam runs, the training runs and
+the evals) and read just after it. The last line
 of stdout is the JSON result; any failed phase exits non-zero without it.
 The line before it lists every kernel with its launches on the driven
 paths, its error and time against its plain version, its bound (the
@@ -214,6 +238,24 @@ STAGE_SHAPES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
 # The same at 256x192, the slam phase's fixture.
 SLAM_STAGE_SHAPES = {"stage1": (48, 48, 64, 32), "stage2": (4, 96, 128, 16),
                      "stage3": (4, 192, 256, 8)}
+# The training and eval phases: tandem_train on the trajectory fixture
+# (abl04 at 640x480, B = 2), the learning curve's gate and steps
+# (tests/test_train_learns.py's), and tandem_eval on replica_mini
+# (tests/test_eval_fixture.py's reference numbers and tolerance).
+TRAIN_ROOT = REPO / "tests" / "fixtures" / "replica_traj"
+EVAL_ROOT = REPO / "tests" / "fixtures" / "replica_mini"
+EVAL_UNIT = REPO / "exported" / "tandem_512x320"
+CURVE_STEPS = 41
+BF16_STEPS = 8
+REF_ABS_REL = {"48,32,8": {"stage1": 0.008706, "stage2": 0.177201,
+                           "stage3": 0.144266},
+               "48,4,4": {"stage1": 0.008706, "stage2": 0.006343,
+                          "stage3": 0.006183}}
+EVAL_TOL = 0.01
+# The backward kernel against its plain version in float64: the error of
+# its float32 sums (atomics in any order) as a share of the largest
+# |gradient|.
+GRAD_TOL = 1e-4
 # Every hand kernel: where it lives and which Pallas kernels it replaces.
 KERNELS = {
     "edge_kth": ("tandem_tpu_torch/csrc/edge_kth.cu",
@@ -229,6 +271,10 @@ KERNELS = {
                         "experiments/pallas_gather_probe.py:82 (P5 + P3) "
                         "on the main path, and the position math of "
                         "tandem_tpu/ops/warp.py:96-116 (XLA)"),
+    "warp_sample_grad": ("tandem_tpu_torch/csrc/bilinear_sample.cu",
+                         "the gradient of P5 + P3's function on the main "
+                         "path: the scatter-add XLA derives for jax.grad "
+                         "from the gather of tandem_tpu/ops/warp.py:147-157"),
     "row_gather": ("tandem_tpu_torch/csrc/row_gather.cu",
                    "experiments/pallas_gather_probe.py:35 "
                    "experiments/pallas_gather_probe.py:59 "
@@ -250,7 +296,8 @@ def wrappers() -> dict:
     """Each kernel's wrappers; their ``.launches`` count its launches."""
     from tandem_tpu_torch.ops.bilinear_index import bilinear_index
     from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
-                                                      warp_sample)
+                                                      warp_sample,
+                                                      warp_sample_grad)
     from tandem_tpu_torch.ops.corner_blend import corner_blend
     from tandem_tpu_torch.ops.edge_kth import edge_filter, edge_kth_value
     from tandem_tpu_torch.ops.row_gather import row_gather
@@ -260,6 +307,7 @@ def wrappers() -> dict:
             "bilinear_index": (bilinear_index,),
             "corner_blend": (corner_blend,),
             "bilinear_sample": (warp_sample, bilinear_sample),
+            "warp_sample_grad": (warp_sample_grad,),
             "row_gather": (row_gather,), "track_reduce": (track_reduce,),
             "track_lm": (lm_level,)}
 
@@ -563,7 +611,8 @@ def _grid_sample_args(feat, x, y, keep, H: int, W: int):
     import torch
     gx = torch.where(keep, x / (W - 1) * 2 - 1, torch.full_like(x, -3.0))
     gy = torch.where(keep, y / (H - 1) * 2 - 1, torch.full_like(y, -3.0))
-    grid = torch.stack([gx, gy], -1).reshape(1, -1, W, 2).to(feat.dtype)
+    grid = torch.stack([gx, gy], -1).reshape(feat.shape[0], -1, W, 2) \
+        .to(feat.dtype)
     return feat.permute(0, 3, 1, 2).contiguous(), grid
 
 
@@ -934,11 +983,115 @@ def _row_gather(dev, out: dict):
                          "library": "torch.index_select"}
 
 
+def _grad_error(path: str, acc, gout, mat, depth,
+                min_depth: float = 0.001) -> tuple:
+    """The backward kernel's float32 sums ``acc`` against the plain
+    gradient in float64 (the same rounded weights and grad_out), each batch
+    item on its own: (worst error, largest |gradient| of that item). Fails
+    unless every item's error is within GRAD_TOL of its largest
+    |gradient|."""
+    import torch
+
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample_grad_plain
+    ref = warp_sample_grad_plain(gout, mat, depth, min_depth,
+                                 acc_dtype=torch.float64)
+    worst = (0.0, 1.0)
+    for b in range(ref.shape[0]):
+        top = float(ref[b].abs().max())
+        err = float((acc[b].double() - ref[b]).abs().max())
+        if not (top > 0 and err <= GRAD_TOL * top and acc.dtype
+                == torch.float32):
+            raise AssertionError(f"{path}: item {b}'s gradient off by "
+                                 f"{err:.3e} of max |grad| {top:.3e}")
+        if err / top >= worst[0] / worst[1]:
+            worst = (err, top)
+    return worst
+
+
+def _sweep_grad_kernel(dev, out: dict):
+    """The plane-sweep sample's backward kernel (warp_sample_grad) at the
+    abl04 640x480 stage shapes with B = 2, as training gives it: item 0
+    the golden sweep with part of it behind the source camera, item 1 the
+    golden sweep itself, f32 and bf16 grad_out; each item's float32 sums
+    within GRAD_TOL of its largest |gradient| in float64; the kernel's
+    time by events and by the profiler, the plain version's (torch ops,
+    float32 sums), its byte bound, and grid_sample's backward (the input's
+    gradient) on the same grid."""
+    import torch
+
+    from tandem_tpu_torch.ops.bilinear_sample import (sweep_positions,
+                                                      warp_sample_grad,
+                                                      warp_sample_grad_plain)
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for stage, (D, H, W, C) in STAGE_SHAPES.items():
+            sweeps = [_golden_sweep(dev, stage, D, H, W, behind)
+                      for behind in (True, False)]
+            mat = torch.cat([m for m, _, _ in sweeps]).contiguous()
+            depth = torch.cat([d for _, d, _ in sweeps]).contiguous()
+            gout = torch.randn((2, D, H, W, C), generator=gen,
+                               device=dev).to(dtype)
+            acc = warp_sample_grad(gout, mat, depth)
+            err, top = _grad_error(f"warp_sample_grad {dn} {stage}", acc,
+                                   gout, mat, depth)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            px, py, z = sweep_positions(mat, depth, H, W)
+            feat = torch.zeros((2, H, W, C), device=dev, dtype=dtype)
+            nchw, grid = _grid_sample_args(feat, px, py, ~(z < 0.001), H, W)
+            gnchw = gout.reshape(2, D * H, W, C).permute(0, 3, 1, 2) \
+                .contiguous()
+
+            def library():
+                return torch.ops.aten.grid_sampler_2d_backward(
+                    gnchw, nchw, grid, 0, 0, True, [True, False])
+
+            def kernel():
+                return warp_sample_grad(gout, mat, depth)
+            t = {"kernel": cuda_ms(kernel, iters=50),
+                 "plain": cuda_ms(lambda: warp_sample_grad_plain(
+                     gout, mat, depth), iters=5),
+                 "grid_sample": cuda_ms(library, iters=50)}
+            dev_ms = {"kernel": _device_ms(kernel),
+                      "grid_sample": _device_ms(library)}
+            # The kernel reads grad_out only for the samples with a corner
+            # in the image, in front of the source camera.
+            read = int((~(z < 0.001) & (px > -1) & (px < W) & (py > -1)
+                        & (py < H)).sum())
+            bound = _bound(read * C * gout.element_size()
+                           + _nbytes(mat, depth, acc),
+                           gout.numel() // C * SAMPLE_OPS + read * 8 * C)
+            log(f"[kernels] warp_sample_grad {stage} {dn} B=2 D={D} {W}x{H} "
+                f"C={C} ({read / (gout.numel() // C):.1%} of the samples "
+                f"read: in front of the source camera with a corner in its "
+                f"image): sums within {err / top:.2e} of max |grad| "
+                f"{top:.3e} (bar {GRAD_TOL:g}, each item); kernel "
+                f"{t['kernel']:.4f} ms (events) "
+                f"{dev_ms['kernel']:.4f} ms (device, the zeroing "
+                f"included), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}): share "
+                f"{bound['bound_ms'] / dev_ms['kernel']:.1%} of the device "
+                f"time; plain {t['plain']:.4f} ms; grid_sample backward "
+                f"{t['grid_sample']:.4f} ms (events) "
+                f"{dev_ms['grid_sample']:.4f} ms (device)")
+            if stage == "stage1" and dtype == torch.float32:
+                res.update(ms=t["kernel"], plain_ms=t["plain"],
+                           device_ms=dev_ms["kernel"],
+                           library_ms=t["grid_sample"],
+                           library="grid_sample's backward (the input's "
+                                   "gradient) on the warp's grid",
+                           **bound)
+    out["warp_sample_grad"] = res
+
+
 def phase_kernels(dev) -> dict:
     out = {}
     _edge_kth(dev, out)
     _sample_kernels(dev, out)
     _sweep_kernels(dev, out)
+    _sweep_grad_kernel(dev, out)
     _row_gather(dev, out)
     return out
 
@@ -2146,6 +2299,244 @@ def phase_slam(dev) -> dict:
             "slam_full_again": runs["full_again"]["counts"]}
 
 
+def _train_cli(dev, out_dir: Path, pretrained: str = None,
+               *overrides) -> dict:
+    """One run of the port's tandem_train CLI on the trajectory fixture
+    (abl04 config, 640x480, B = 2, one epoch, on the card): its result and
+    the kernel launches of the run."""
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_train
+    argv = [str(out_dir), "--config",
+            str(REPO / "tandem_tpu_torch" / "configs"
+                / "abl04_fewer_depth_planes.yaml"),
+            *(["--pretrained", pretrained] if pretrained else []),
+            "DATA.ROOT_DIR", str(TRAIN_ROOT), "TRAIN.EPOCHS", "1",
+            "IO.LOG_INTERVAL", "1", *overrides]
+    torch.cuda.synchronize()
+    reset_counts()
+    res = tandem_train.main(tandem_train.parser.parse_intermixed_args(argv))
+    torch.cuda.synchronize()
+    return {"res": res, "counts": read_counts()}
+
+
+def _require_step_launches(path: str, counts: dict, steps: int,
+                           per_step: int):
+    """The forward sample and its backward kernel launched in every step:
+    once a source view and stage each."""
+    if counts["warp_sample_grad"] != per_step * steps \
+            or counts["bilinear_sample"] < per_step * steps:
+        raise AssertionError(f"{path}: {counts['bilinear_sample']} sample "
+                             f"and {counts['warp_sample_grad']} backward "
+                             f"launches in {steps} steps (want "
+                             f"{per_step} each a step)")
+
+
+def _recorded_step(step, state, batch):
+    """One train step with every backward-kernel call's inputs and float32
+    sums recorded: (state, metrics, the calls). The wrapper counts its
+    launches on the module's name, the recorder's while it stands there;
+    they are added to the wrapper's after the step."""
+    from tandem_tpu_torch.ops import bilinear_sample as bs
+    kernel, calls = bs.warp_sample_grad, []
+
+    def recording(grad_out, ref_to_src, depth, min_depth_thres=0.001):
+        acc = kernel(grad_out, ref_to_src, depth, min_depth_thres)
+        calls.append((grad_out.clone(), ref_to_src.clone(), depth.clone(),
+                      min_depth_thres, acc.clone()))
+        return acc
+    recording.launches = 0
+    bs.warp_sample_grad = recording
+    try:
+        state, m = step(state, batch)
+    finally:
+        bs.warp_sample_grad = kernel
+        kernel.launches += recording.launches
+    return state, m, calls
+
+
+def _curve(dev, config, batch, steps: int) -> dict:
+    """``steps`` train steps on one batch from the seeded initialization:
+    losses, stage-1 abs_rel, host-clock ms a step (synchronized), the
+    first step's backward-kernel calls, each held to its plain version
+    (``_grad_error``, every batch item), and the peak device memory of the
+    steps after it (the first holds the recorded calls)."""
+    import torch
+
+    from tandem_tpu_torch.train import trainer as pt
+    model, state = pt.create_train_state(
+        config, torch.Generator().manual_seed(0), 200, device=dev)
+    step = pt.make_train_step(model, config)
+    losses, absrel, ms = [], [], []
+    torch.cuda.synchronize()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i == 0:
+            state, m, calls = _recorded_step(step, state, batch)
+        else:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        absrel.append(float(m["stage1/abs_rel"]))
+        if i == 0:
+            errs = [_grad_error(f"train step's backward call {k} "
+                                f"{tuple(g.shape)} {g.dtype}", acc, g, mat,
+                                depth, thres)
+                    for k, (g, mat, depth, thres, acc) in enumerate(calls)]
+            n_calls = len(calls)
+            del calls
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+    return {"losses": losses, "absrel": absrel, "ms": ms,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "grad_calls": n_calls,
+            "grad_err": max(e / top for e, top in errs)}
+
+
+def phase_train(dev) -> dict:
+    """The training half on the card: tandem_train on replica_traj (abl04,
+    640x480, B = 2, f32): one epoch (7 steps) with a checkpoint, then a
+    resume from it with --pretrained (the state's step, optimizer and
+    schedule come back: the next checkpoint is step 14); then the learning
+    curve of tests/test_train_learns.py at abl04 640x480 (CURVE_STEPS steps
+    on tuples 0 and 7 from the seeded initialization: finite, the mean of
+    the last 5 losses under 0.5 x the mean of the first 5) and BF16_STEPS
+    bf16 steps (finite, the last 3 below the first 3). Every step launches
+    the forward sample and its backward kernel 18 times each (6 source
+    views x 3 stages)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    from tandem_tpu_torch.train import trainer as pt
+    work = Path(tempfile.mkdtemp(prefix="train_"))
+    paths = {}
+    per_step = 3 * 6
+    try:
+        first = _train_cli(dev, work / "epoch")
+        r = first["res"]
+        _require_step_launches("train epoch", first["counts"], r["steps"],
+                               per_step)
+        ckpt = r["checkpoints"][-1]
+        if r["steps"] != 7 or not ckpt.endswith("step_00000007") \
+                or not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"train epoch: {r['steps']} steps, "
+                                 f"checkpoint {ckpt}, losses {r['losses']}")
+        log(f"[train] {card_label_once()} tandem_train abl04 640x480 B=2 "
+            f"f32, one epoch of replica_traj: {r['steps']} steps, losses "
+            f"{[round(x, 4) for x in r['losses']]}, ms a step (host clock "
+            f"from the decoded batch to the synchronized step, upload "
+            f"included) {[round(x * 1e3, 1) for x in r['seconds']]}"
+            f"; checkpoint {Path(ckpt).name}; launches {first['counts']}")
+        paths["train_epoch"] = first["counts"]
+        again = _train_cli(dev, work / "resume", ckpt)
+        r2 = again["res"]
+        _require_step_launches("train resume", again["counts"], r2["steps"],
+                               per_step)
+        if not r2["checkpoints"][-1].endswith("step_00000014") \
+                or not np.isfinite(r2["losses"]).all():
+            raise AssertionError(f"train resume: checkpoints "
+                                 f"{r2['checkpoints']}, losses {r2['losses']}")
+        log(f"[train] resumed with --pretrained {Path(ckpt).name}: "
+            f"{r2['steps']} steps to {Path(r2['checkpoints'][-1]).name}, "
+            f"losses {[round(x, 4) for x in r2['losses']]}")
+        paths["train_resume"] = again["counts"]
+
+        config = pcfg.default()
+        pcfg.merge_from_file(config, str(REPO / "tandem_tpu_torch" / "configs"
+                                         / "abl04_fewer_depth_planes.yaml"))
+        ds = MVSDataset(str(TRAIN_ROOT), "val", height=480, width=640)
+        batch = pt.batch_to_device(collate([ds[0], ds[7]]), dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        curve = _curve(dev, config, batch, CURVE_STEPS)
+        counts = read_counts()
+        _require_step_launches("train curve", counts, CURVE_STEPS, per_step)
+        paths["train_curve"] = counts
+        L = curve["losses"]
+        log(f"[train] {card_label_once()} learning curve, abl04 640x480 "
+            f"B=2 f32, {CURVE_STEPS} steps on tuples 0 and 7: loss "
+            f"{L[0]:.4f} -> {L[-1]:.4f} (first 5 mean {np.mean(L[:5]):.4f}, "
+            f"last 5 {np.mean(L[-5:]):.4f}), stage-1 abs_rel "
+            f"{curve['absrel'][0]:.4f} -> {curve['absrel'][-1]:.4f}; step "
+            f"ms (host clock, synchronized) first {curve['ms'][0]:.1f}, "
+            f"median after it {np.median(curve['ms'][1:]):.2f} (min "
+            f"{min(curve['ms'][1:]):.2f}, max {max(curve['ms'][1:]):.2f}); "
+            f"peak memory (steps 2-{CURVE_STEPS}) {curve['peak_gb']:.2f} "
+            f"GB; the first step's "
+            f"{curve['grad_calls']} backward calls (B=2) within "
+            f"{curve['grad_err']:.2e} of their plain gradient's max (bar "
+            f"{GRAD_TOL:g}, each item); all losses "
+            f"{[round(x, 4) for x in L]}")
+        if not (np.isfinite(L).all() and np.mean(L[-5:])
+                < 0.5 * np.mean(L[:5])):
+            raise AssertionError(f"train curve: losses {L}")
+        config["TRAIN.COMPUTE_DTYPE"] = "bfloat16"
+        reset_counts()
+        bf = _curve(dev, config, batch, BF16_STEPS)
+        counts = read_counts()
+        _require_step_launches("train bf16", counts, BF16_STEPS, per_step)
+        paths["train_bf16"] = counts
+        Lb = bf["losses"]
+        log(f"[train] bf16, {BF16_STEPS} steps: losses "
+            f"{[round(x, 4) for x in Lb]}; step ms median after the first "
+            f"{np.median(bf['ms'][1:]):.2f}; peak memory "
+            f"{bf['peak_gb']:.2f} GB; the first step's {bf['grad_calls']} "
+            f"backward calls within {bf['grad_err']:.2e} of their plain "
+            f"gradient's max")
+        if not (np.isfinite(Lb).all()
+                and np.mean(Lb[-3:]) < np.mean(Lb[:3])):
+            raise AssertionError(f"train bf16: losses {Lb}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return paths
+
+
+def phase_eval(dev) -> dict:
+    """The port's tandem_eval CLI on replica_mini with the trained
+    512x320 unit at 512x320, tuple 0, at both architectures: stage abs_rel
+    within EVAL_TOL of the reference's (tests/test_eval_fixture.py), the
+    report and the errors written, the forward sample launched."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_eval
+    work = Path(tempfile.mkdtemp(prefix="eval_"))
+    paths = {}
+    try:
+        for depth_num, ref in REF_ABS_REL.items():
+            ckpt = work / f"trained_{depth_num.replace(',', '_')}.pkl"
+            shutil.copy(EVAL_UNIT / "model_variables.pkl", ckpt)
+            torch.cuda.synchronize()
+            reset_counts()
+            errors = tandem_eval.main(tandem_eval.parser.parse_args([
+                "--ckpt", str(ckpt), "--data-root", str(EVAL_ROOT),
+                "--width", "512", "--height", "320", "--limit", "1",
+                "--depth-num", depth_num]))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            require_launched(f"eval {depth_num}", counts,
+                             ("bilinear_sample",))
+            paths[f"eval_{depth_num}"] = counts
+            got = {s: errors[s]["abs_rel"] for s in ref}
+            log(f"[eval] tandem_eval replica_mini 512x320 planes "
+                f"{depth_num}: abs_rel {got} (reference {ref}, tolerance "
+                f"{EVAL_TOL}); report {Path(str(ckpt) + '.txt').exists()}")
+            if not all(abs(got[s] - ref[s]) < EVAL_TOL for s in ref):
+                raise AssertionError(f"eval {depth_num}: abs_rel {got} vs "
+                                     f"{ref}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def card_label_once() -> str:
     from tandem_tpu_torch.utils.cuda_timing import card_label
     if not hasattr(card_label_once, "label"):
@@ -2219,6 +2610,10 @@ def main() -> int:
     lap("track mvs")
     paths.update(phase_slam(dev))
     lap("slam")
+    paths.update(phase_train(dev))
+    lap("train")
+    paths.update(phase_eval(dev))
+    lap("eval")
     log(f"[time] seconds a phase (host clock): {laps}")
     log(f"[paths] launches by path: {paths} "
         f"({time.perf_counter() - t_start:.1f} s in all)")

@@ -5,6 +5,9 @@
 //     matrix and the depth, and the output is the warped volume
 //     (B, D, H, W, C);
 //   explicit (tandem_bilinear_sample): the positions are given, (B, N).
+// And the plane sweep's gradient with respect to the image
+// (tandem_warp_sample_grad, at the end of the file): the same cells,
+// scattered with atomics.
 //
 // Replaces on the main path the TPU kernels experiments/bench_idxchain.py
 // make_pallas (P5, the bilinear index chain) and
@@ -239,6 +242,65 @@ __device__ __forceinline__ void sample_row(const T* __restrict__ image,
   }
 }
 
+// The gradient of blend: grad_out's channels [c, c + VEC) of one sample
+// (at src), times each corner's weight, added to the float32 image
+// gradient at the corners that lie in the image and weigh more than zero.
+template <typename T, int VEC>
+__device__ __forceinline__ void scatter(float* __restrict__ grad,
+                                        const Cell& s, int c, int H, int W,
+                                        int C, const T* __restrict__ src) {
+  const int x = (s.xy & 0xffff) - 1;
+  const int y = (s.xy >> 16) - 1;
+  const bool x0in = x >= 0, x1in = x + 1 < W;
+  const bool y0in = y >= 0, y1in = y + 1 < H;
+  const bool a00 = y0in && x0in && s.w00 != 0.0f;
+  const bool a10 = y0in && x1in && s.w10 != 0.0f;
+  const bool a01 = y1in && x0in && s.w01 != 0.0f;
+  const bool a11 = y1in && x1in && s.w11 != 0.0f;
+  if (!(a00 || a10 || a01 || a11)) return;  // dropped or outside
+  const Vec<T, VEC> g = load<T, VEC>(src);
+  const int off = (y * W + x) * C + c;  // the image has < 2^31 values
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float v = to_f32(g.v[e]);
+    if (a00) atomicAdd(grad + off + e, __fmul_rn(v, s.w00));
+    if (a10) atomicAdd(grad + off + C + e, __fmul_rn(v, s.w10));
+    if (a01) atomicAdd(grad + off + W * C + e, __fmul_rn(v, s.w01));
+    if (a11) atomicAdd(grad + off + W * C + C + e, __fmul_rn(v, s.w11));
+  }
+}
+
+// sample_row's walk over the warp's 32 samples, scattering grad_out
+// (gout: sample j's C values at gout[j * C]) into the image gradient.
+template <typename T, int VEC>
+__device__ __forceinline__ void scatter_row(float* __restrict__ grad,
+                                            const Cell& own, int n, int lane,
+                                            int H, int W, int C,
+                                            const T* __restrict__ gout) {
+  const int L = C / VEC;  // lanes a sample
+  if (L == 1) {
+    if (lane < n) scatter<T, VEC>(grad, own, 0, H, W, C, gout + lane * C);
+  } else if (32 % L == 0) {
+    const int per = 32 / L;
+    const int j0 = lane / L;
+    const int c = (lane - j0 * L) * VEC;
+#pragma unroll 2
+    for (int k = 0; k < L; ++k) {
+      const int j = j0 + k * per;
+      const Cell s = shfl_cell(own, j);
+      if (j < n) scatter<T, VEC>(grad, s, c, H, W, C, gout + j * C + c);
+    }
+  } else {
+#pragma unroll 2
+    for (int t = lane; t < 32 * L; t += 32) {
+      const int j = t / L;
+      const int c = (t - j * L) * VEC;
+      const Cell s = shfl_cell(own, j);
+      if (j < n) scatter<T, VEC>(grad, s, c, H, W, C, gout + j * C + c);
+    }
+  }
+}
+
 // Geometry of one launch. Sweep: B images, D planes each, the reference
 // grid H x W (the image's), planes_per_warp planes a warp. Explicit: B
 // images, one plane of one row of N samples each, planes_per_warp 1.
@@ -249,18 +311,29 @@ struct Grid {
   int rows_per_block;
 };
 
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kWarps * 32)
-    warp_sample_kernel(const T* __restrict__ img, Grid g,
-                       const float* __restrict__ mat,
-                       const float* __restrict__ depth, float min_depth,
-                       T* __restrict__ out) {
+// A warp's share of a plane sweep: 32 consecutive pixels of one row of
+// the reference (n of them in the image) over np consecutive planes from
+// d0 of image b, and lane's cell on each plane. The forward kernel and the
+// gradient kernel both take their samples from here, so they see the same
+// positions, weights, cells and drop decisions, bit for bit.
+struct SweepTile {
+  int64_t b, d0, plane_size, pix;
+  int lane, n, np;
+  Cell cells[kMaxPlanes];
+};
+
+// Fills t for this warp; false if the warp has no pixel (uniform).
+template <typename T>
+__device__ __forceinline__ bool sweep_tile(const Grid& g,
+                                           const float* __restrict__ mat,
+                                           const float* __restrict__ depth,
+                                           float min_depth, SweepTile& t) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps_per_row = kWarps / g.rows_per_block;
   const int row = blockIdx.y * g.rows_per_block + warp / warps_per_row;
   const int col0 = (blockIdx.x * warps_per_row + warp % warps_per_row) * 32;
-  if (row >= g.rows || col0 >= g.cols) return;  // whole warp: uniform
+  if (row >= g.rows || col0 >= g.cols) return false;  // whole warp
   const int64_t groups = (g.D + g.planes_per_warp - 1) / g.planes_per_warp;
   const int64_t b = blockIdx.z / groups;
   const int64_t d0 = (blockIdx.z - b * groups) * g.planes_per_warp;
@@ -270,19 +343,18 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int n = min(32, g.cols - col0);
   const int64_t plane_size = static_cast<int64_t>(g.rows) * g.cols;
   const int64_t pix = static_cast<int64_t>(row) * g.cols + col;
-  const T* image = img + b * g.H * g.W * static_cast<int64_t>(g.C);
 
   // The pixel's ray: dir_i = (r_i0 x + r_i1 y) + r_i2, and t_i.
   const float* m = mat + b * 12;
   const float x = static_cast<float>(col);
   const float y = static_cast<float>(row);
-  float dir[3], t[3];
+  float dir[3], tr[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     dir[i] = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 4 * i), x),
                                  __fmul_rn(__ldg(m + 4 * i + 1), y)),
                        __ldg(m + 4 * i + 2));
-    t[i] = __ldg(m + 4 * i + 3);
+    tr[i] = __ldg(m + 4 * i + 3);
   }
   // All of the warp's depths first: one DRAM latency a warp, not one a
   // plane (a plane's rounds are too short to hide it).
@@ -293,30 +365,78 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int k = 0; k < kMaxPlanes; ++k) {
     dv[k] = valid && k < np ? dp[k * plane_size] : 0.0f;
   }
-  // Then every plane's cell (independent chains, two divisions each),
-  // then the planes' rounds.
-  Cell cells[kMaxPlanes];
+  // Then every plane's cell (independent chains, two divisions each).
 #pragma unroll
   for (int k = 0; k < kMaxPlanes; ++k) {
-    cells[k] = Cell{0.0f, 0.0f, 0.0f, 0.0f, 0};
+    t.cells[k] = Cell{0.0f, 0.0f, 0.0f, 0.0f, 0};
     if (valid && k < np) {
       float p[3];
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
-        p[i] = __fadd_rn(__fmul_rn(dir[i], dv[k]), t[i]);
+        p[i] = __fadd_rn(__fmul_rn(dir[i], dv[k]), tr[i]);
       }
       const float z = p[2];
       const float zs = fabsf(z) < 1e-12f ? 1e-12f : z;
-      cells[k] = make_cell<T>(__fdiv_rn(p[0], zs), __fdiv_rn(p[1], zs),
-                              !(z < min_depth), g.H, g.W);
+      t.cells[k] = make_cell<T>(__fdiv_rn(p[0], zs), __fdiv_rn(p[1], zs),
+                                !(z < min_depth), g.H, g.W);
     }
   }
-  T* dst = out + ((b * g.D + d0) * plane_size + pix - lane) * g.C;
+  t.b = b;
+  t.d0 = d0;
+  t.plane_size = plane_size;
+  t.pix = pix;
+  t.lane = lane;
+  t.n = n;
+  t.np = np;
+  return true;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    warp_sample_kernel(const T* __restrict__ img, Grid g,
+                       const float* __restrict__ mat,
+                       const float* __restrict__ depth, float min_depth,
+                       T* __restrict__ out) {
+  SweepTile t;
+  if (!sweep_tile<T>(g, mat, depth, min_depth, t)) return;
+  const T* image = img + t.b * g.H * g.W * static_cast<int64_t>(g.C);
+  // Then the planes' rounds.
+  T* dst = out + ((t.b * g.D + t.d0) * t.plane_size + t.pix - t.lane) * g.C;
 #pragma unroll
   for (int k = 0; k < kMaxPlanes; ++k) {
-    if (k >= np) break;  // uniform
-    sample_row<T, VEC>(image, cells[k], n, lane, g.H, g.W, g.C,
-                       dst + k * plane_size * g.C);
+    if (k >= t.np) break;  // uniform
+    sample_row<T, VEC>(image, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
+                       dst + k * t.plane_size * g.C);
+  }
+}
+
+// The plane sweep's gradient with respect to the image: each sample's
+// grad_out, times its four weights, added to its corners. Replaces the
+// scatter-add that XLA derives from the gather of
+// tandem_tpu/ops/warp.py:147-157 for jax.grad. Bound: memory, by the read
+// of grad_out (C values a sample, read once, coalesced as the forward
+// writes it) and the float32 atomics into the image gradient, which stays
+// in the 50 MB L2 (2.5-9.8 MB a view at the abl04 stages). One thread a
+// (sample, channel vector), up to 4 x VEC atomicAdds each; neighbouring
+// samples hit neighbouring corners, so the atomics of a warp contend for
+// the same L2 lines. The order of the additions changes from run to run:
+// the gradient is not bit-reproducible, to a few float32 ulps of each sum.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    warp_sample_grad_kernel(const T* __restrict__ grad_out, Grid g,
+                            const float* __restrict__ mat,
+                            const float* __restrict__ depth, float min_depth,
+                            float* __restrict__ grad) {
+  SweepTile t;
+  if (!sweep_tile<T>(g, mat, depth, min_depth, t)) return;
+  float* gimg = grad + t.b * g.H * g.W * static_cast<int64_t>(g.C);
+  const T* src =
+      grad_out + ((t.b * g.D + t.d0) * t.plane_size + t.pix - t.lane) * g.C;
+#pragma unroll
+  for (int k = 0; k < kMaxPlanes; ++k) {
+    if (k >= t.np) break;  // uniform
+    scatter_row<T, VEC>(gimg, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
+                        src + k * t.plane_size * g.C);
   }
 }
 
@@ -369,6 +489,25 @@ struct SweepLaunch {
                                  stream>>>(static_cast<const T*>(img), g, mat,
                                            depth, min_depth,
                                            static_cast<T*>(out));
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+struct GradLaunch {
+  const void* grad_out;
+  Grid g;
+  int64_t B;
+  const float* mat;
+  const float* depth;
+  float min_depth;
+  float* grad;
+  cudaStream_t stream;
+  template <typename T, int VEC>
+  int run() const {
+    const int64_t groups = (g.D + g.planes_per_warp - 1) / g.planes_per_warp;
+    warp_sample_grad_kernel<T, VEC><<<grid_of(g, B * groups), kWarps * 32, 0,
+                                      stream>>>(
+        static_cast<const T*>(grad_out), g, mat, depth, min_depth, grad);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -484,4 +623,41 @@ extern "C" int tandem_bilinear_sample(const SampleArgs* a,
   return dispatch(a->bf16, a->vec,
                   ExplicitLaunch{a->img, g, a->B, a->px, a->py, a->keep,
                                  a->out, stream});
+}
+
+struct GradArgs {
+  const void* grad_out;  // (B, D, H, W, C) float32 (bf16 = 0) or bfloat16
+  const float* mat;      // (B, 3, 4) float32, as the forward's
+  const float* depth;    // (B, D, H, W) float32, as the forward's
+  float* grad;           // (B, H, W, C) float32, zeroed: the gradient's sums
+  int64_t B, D;
+  int H, W, C;
+  int vec;               // channels a lane, as SweepArgs; grad_out aligned
+  int rows_per_block;    // 1, 2, 4 or 8
+  int planes_per_warp;   // 1-4
+  int bf16;
+  float min_depth;
+};
+static_assert(sizeof(GradArgs) == 80, "GradArgs layout");
+
+// The plane sweep's image gradient: one launch of the scatter kernel,
+// which adds into the zeroed float32 sums. All arrays contiguous.
+// Launches on ``stream`` without synchronising; returns
+// cudaGetLastError().
+extern "C" int tandem_warp_sample_grad(const GradArgs* a,
+                                       cudaStream_t stream) {
+  if (a->B <= 0 || a->D <= 0) return 0;
+  const int planes = a->planes_per_warp, rows = a->rows_per_block;
+  const int64_t groups = planes < 1 || planes > kMaxPlanes
+                             ? 0
+                             : (a->D + planes - 1) / planes;
+  if (bad_geometry(a->H, a->W, a->C, a->vec) || groups < 1 ||
+      a->B * groups > 65535 ||
+      (rows != 1 && rows != 2 && rows != 4 && rows != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Grid g{a->D, a->H, a->W, planes, a->H, a->W, a->C, rows};
+  return dispatch(a->bf16, a->vec,
+                  GradLaunch{a->grad_out, g, a->B, a->mat, a->depth,
+                             a->min_depth, a->grad, stream});
 }

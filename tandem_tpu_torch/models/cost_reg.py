@@ -5,7 +5,8 @@ cva_mvsnet/models/module.py:534-600): stride-2 encoder, except stride
 (1, 2, 2) and output_padding (0, 1, 1) at the deepest level when D == 4;
 ConvTranspose3d decoder with skip additions; a 3x3x3 single-channel logit
 conv without bias. Both modules compute in their ``dtype`` (float32 or
-bfloat16) from the float32 parameters, as the JAX modules do.
+bfloat16) from the float32 parameters, as the JAX modules do, and take
+``train=True`` for training BatchNorm (``layers.batch_norm_train``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BN_EPS, ConvBnRelu, DeconvBnRelu, conv_in, fold_bn
+from .layers import (BN_EPS, ConvBnRelu, DeconvBnRelu, batch_norm_train,
+                     conv_in, fold_bn)
 
 
 class CostRegNet(nn.Module):
@@ -39,16 +41,17 @@ class CostRegNet(nn.Module):
         self.conv11 = DeconvBnRelu(2 * b, b, dtype=dtype)
         self.prob = nn.Conv3d(b, 1, 3, padding=1, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """:param x: (B, C, D, H, W) cost volume -> logits (B, D, H, W) in
         dtype"""
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
-        conv4 = self.conv4(self.conv3(conv2))
-        x = self.conv6(self.conv5(conv4))
-        x = conv4 + self.conv7(x)
-        x = conv2 + self.conv9(x)
-        x = conv0 + self.conv11(x)
+        t = train
+        conv0 = self.conv0(x, t)
+        conv2 = self.conv2(self.conv1(conv0, t), t)
+        conv4 = self.conv4(self.conv3(conv2, t), t)
+        x = self.conv6(self.conv5(conv4, t), t)
+        x = conv4 + self.conv7(x, t)
+        x = conv2 + self.conv9(x, t)
+        x = conv0 + self.conv11(x, t)
         return conv_in(self.prob, x, self.dtype)[:, 0]
 
 
@@ -69,14 +72,21 @@ class VolumeGate(nn.Sequential):
             nn.BatchNorm3d(1, eps=BN_EPS), nn.ReLU())
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """:param x: (B, D, H, W, C) -> (B, D, H, W) in dtype (JAX
         cost_reg.py:111-121: weights and biases cast to the compute dtype,
-        BatchNorm folded)"""
+        BatchNorm folded); with ``train``, float32 after each training
+        BatchNorm over all of (B, D, H, W) (JAX cost_reg.py:100-109), which
+        updates the running statistics once a call: once a source view."""
         c0, bn0, _, c1, bn1, _ = self
         dt = self.dtype
         y = F.linear(x.to(dt), c0.weight.to(dt).reshape(1, -1),
                      c0.bias.to(dt))[..., 0]
+        if train:
+            y = F.relu(batch_norm_train(y.reshape(1, 1, -1), bn0)).to(dt)
+            y = y * c1.weight.to(dt).reshape(()) + c1.bias.to(dt)
+            y = F.relu(batch_norm_train(y, bn1))
+            return y.reshape(x.shape[:-1])
         inv0, off0 = fold_bn(bn0, dt)                       # (1,) each
         inv1, off1 = fold_bn(bn1, dt)
         y = F.relu(y * inv0 + off0)

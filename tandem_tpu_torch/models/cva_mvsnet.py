@@ -1,5 +1,5 @@
 """CVA-MVSNet: 3-stage cascaded plane-sweep MVS with adaptive view
-aggregation, for inference.
+aggregation, for inference and training.
 
 Port of ``tandem_tpu/models/cva_mvsnet.py`` (parity target
 cva_mvsnet/models/cva_mvsnet.py:24-184 and module.py:1030-1139). The public
@@ -19,6 +19,13 @@ pins cuDNN convolutions and CUDA matmuls to full f32 (no TF32) and cuDNN
 to deterministic algorithms for the whole process; the TF32 default would
 cost the f32 golden parity (the same trap as the TPU's default matmul
 precision).
+
+``forward(..., train=True)`` is the JAX package's ``apply(..., train=True,
+mutable=["batch_stats"])``: gradients flow (the eval path runs under
+``torch.no_grad``), BatchNorm uses the batch's statistics and updates the
+running ones in place (the gate's once a source view, in view order), and
+gradients stop where the JAX package stops them: at the previous stage's
+depth and at the confidence.
 """
 
 from __future__ import annotations
@@ -88,12 +95,32 @@ class CvaMVSNet(nn.Module):
             self.volume_gates = nn.ModuleDict(
                 {s: VolumeGate(fc[s], dtype) for s in STAGES})
 
-    @torch.no_grad()
     def forward(self, image, intrinsic_matrix: Sequence[torch.Tensor],
                 cam_to_world, depth_min, depth_max,
-                depth_filter_discard_percentage=None) -> Outputs:
+                depth_filter_discard_percentage=None,
+                train: bool = False) -> Outputs:
+        """
+        :param image: (B, V, C, H, W) RGB in [0, 1]
+        :param intrinsic_matrix: 3 x (B, 3, 3), stage order
+        :param cam_to_world: (B, V, 4, 4), reference view first
+        :param depth_min, depth_max: (B,)
+        :param depth_filter_discard_percentage: optional (B,) in [0, 100]
+        :param train: training mode (see the module's docstring)
+        """
+        if train:
+            return self._forward(image, intrinsic_matrix, cam_to_world,
+                                 depth_min, depth_max,
+                                 depth_filter_discard_percentage, True)
+        with torch.no_grad():
+            return self._forward(image, intrinsic_matrix, cam_to_world,
+                                 depth_min, depth_max,
+                                 depth_filter_discard_percentage, False)
+
+    def _forward(self, image, intrinsic_matrix, cam_to_world, depth_min,
+                 depth_max, depth_filter_discard_percentage, train: bool):
         B, V, C, H, W = image.shape
-        feats = self.feature_net(image.reshape(B * V, C, H, W).float())
+        feats = self.feature_net(image.reshape(B * V, C, H, W).float(),
+                                 train)
         # per stage: (B, V, Hs, Ws, Cs), channels last and contiguous for
         # the warp's kernel
         features = {s: f.permute(0, 2, 3, 1).contiguous().reshape(
@@ -109,7 +136,7 @@ class CvaMVSNet(nn.Module):
                     depth_min=depth_min, depth_max=depth_max,
                     depth_num=self.depth_num[i], height=hs, width=ws)
             else:
-                prev = outputs[STAGES[i - 1]][0]
+                prev = outputs[STAGES[i - 1]][0].detach()
                 up = interpolate_bilinear(prev[..., None].float(), hs,
                                           ws)[..., 0]
                 depth_samples = adaptive_depth_range(
@@ -119,7 +146,8 @@ class CvaMVSNet(nn.Module):
             gate = self.volume_gates[stage] if self.view_aggregation else None
             outputs[stage] = self._depth_prediction(
                 features[stage], intrinsic_matrix[i], cam_to_world,
-                depth_samples, self.cost_regularization_net[stage], gate)
+                depth_samples, self.cost_regularization_net[stage], gate,
+                train)
 
         # Edge filtering runs AFTER all stages (cva_mvsnet.py:165-177).
         result = {}
@@ -135,7 +163,8 @@ class CvaMVSNet(nn.Module):
         return Outputs(**result)
 
     def _depth_prediction(self, features, K, cam_to_world, depth_in,
-                          cost_reg: CostRegNet, gate: Optional[VolumeGate]):
+                          cost_reg: CostRegNet, gate: Optional[VolumeGate],
+                          train: bool = False):
         """One cascade stage (module.py:1030-1139 semantics).
 
         :param features: (B, V, H, W, C) stage features, ref view first
@@ -160,7 +189,7 @@ class CvaMVSNet(nn.Module):
             warped = warped.to(self.dtype)
             if gate is not None:
                 diff_sq = (warped - ref_volume) ** 2
-                term = (gate(diff_sq)[..., None] + 1.0) * diff_sq
+                term = (gate(diff_sq, train)[..., None] + 1.0) * diff_sq
                 acc = term if acc is None else acc + term
             else:
                 acc = warped if acc is None else acc + warped
@@ -172,16 +201,17 @@ class CvaMVSNet(nn.Module):
             vol_sum = ref_volume + acc
             vol_sq_sum = ref_volume ** 2 + sq_acc
             volume = vol_sq_sum / V - (vol_sum / V) ** 2
-        return self._depth_head(volume, depth_in, cost_reg)
+        return self._depth_head(volume, depth_in, cost_reg, train)
 
     @staticmethod
-    def _depth_head(volume, depth_in, cost_reg: CostRegNet):
+    def _depth_head(volume, depth_in, cost_reg: CostRegNet,
+                    train: bool = False):
         """Cost volume -> (depth, confidence) (module.py:1110-1133): 3D U-Net
         logits, softmax over D, expected depth, and the confidence as the
         sum of 4 adjacent plane probabilities at the expected index,
         truncated like the reference's ``.long()``."""
         D = depth_in.shape[1]
-        logits = cost_reg(volume.permute(0, 4, 1, 2, 3).contiguous())
+        logits = cost_reg(volume.permute(0, 4, 1, 2, 3).contiguous(), train)
         prob = torch.softmax(logits.float(), dim=1)          # (B, D, H, W)
         depth = torch.sum(prob * depth_in.float(), dim=1)
         prob_pad = nn.functional.pad(prob, (0, 0, 0, 0, 1, 2))
@@ -191,4 +221,11 @@ class CvaMVSNet(nn.Module):
         idx_f = torch.sum(prob * steps[None, :, None, None], dim=1)
         idx = torch.clamp(idx_f.long(), 0, D - 1)
         conf = torch.gather(prob4, 1, idx[:, None])[:, 0]
-        return depth, conf
+        return depth, conf.detach()
+
+
+def outputs_to_dict(outputs: Outputs):
+    """{stage: {"depth", "confidence"}} of the (filtered) outputs."""
+    return {s: {"depth": getattr(outputs, s).depth,
+                "confidence": getattr(outputs, s).confidence}
+            for s in STAGES}

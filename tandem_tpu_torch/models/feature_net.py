@@ -6,7 +6,10 @@ conv2 5x5s2+3x3+3x3, nearest 2x upsampling with 1x1 skip convs, output
 convs stage1 1x1 / stage2,3 3x3 (no bias). Outputs {stage1: 4b, stage2: 2b,
 stage3: b} channels at scales {1/4, 1/2, 1}. Module names follow the
 reference so the converted state_dict loads as is. Everything runs in the
-compute ``dtype``, the input cast once on entry (JAX cva_mvsnet.py:92).
+compute ``dtype``, the input cast once on entry (JAX cva_mvsnet.py:92);
+``train=True`` gives the convolution blocks training BatchNorm
+(``layers.batch_norm_train``), whose float32 outputs the next convolution
+casts back, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -50,12 +53,17 @@ class FeatureNet(nn.Module):
         b = self.base_channels
         return {"stage1": 4 * b, "stage2": 2 * b, "stage3": b}
 
-    def forward(self, x) -> Dict[str, "torch.Tensor"]:
+    def forward(self, x, train: bool = False) -> Dict[str, "torch.Tensor"]:
         """:param x: (N, 3, H, W) -> {stage: (N, C_s, H/s, W/s)} in dtype"""
         dt = self.dtype
-        conv_s3 = self.conv0(x.to(dt))
-        conv_s2 = self.conv1(conv_s3)
-        conv_s1 = self.conv2(conv_s2)
+
+        def tower(blocks, x):
+            for block in blocks:
+                x = block(x, train)
+            return x
+        conv_s3 = tower(self.conv0, x.to(dt))
+        conv_s2 = tower(self.conv1, conv_s3)
+        conv_s1 = tower(self.conv2, conv_s2)
         inter2 = (upsample_nearest_2x(conv_s1)
                   + conv_in(self.skip["stage2"], conv_s2, dt))
         inter3 = (upsample_nearest_2x(inter2)

@@ -5,15 +5,22 @@ cva_mvsnet/models/module.py:64-284): conv bias only when normalization is
 disabled, eval BatchNorm with eps 1e-5, and the transposed conv as torch's
 own ``ConvTranspose3d`` with output_padding. The JAX package's folded,
 patched and banded conv layouts are TPU layout tricks with the same math;
-they have no counterpart here. The modules are inference modules: callers
-keep them in eval mode.
+they have no counterpart here.
+
+Two modes, chosen by the ``train`` argument of ``forward`` (never by
+``nn.Module.training``, so a model nobody put in eval mode still serves):
+eval (the default) folds BatchNorm as below; train normalizes with the
+batch's statistics and updates the running ones as flax's
+``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` does
+(``batch_norm_train``).
 
 Compute dtype (float32 or bfloat16, the JAX package's ``dtype``): the
 parameters stay float32 (one copy, the converted state_dict) and are cast
 to the compute dtype where they are used; convolutions run in that dtype
 (cuDNN accumulates in float32). Eval BatchNorm is the folded form of JAX
 ``_EvalFoldedBN``: scale and offset computed in float32 on the (C,)
-vectors, cast to the compute dtype, applied as ``x * inv + off``.
+vectors, cast to the compute dtype, applied as ``x * inv + off``. Train
+BatchNorm computes and returns float32, as flax's does.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.9
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm, dtype):
@@ -39,6 +47,29 @@ def apply_bn(x, bn, dtype):
     return x * inv.reshape(shape) + off.reshape(shape)
 
 
+def batch_norm_train(x, bn):
+    """flax's training BatchNorm (``use_fast_variance=True``) on channel
+    axis 1 of x, in float32: the batch mean and the biased variance
+    E[x^2] - E[x]^2 (clipped at 0), y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias; ``bn``'s running statistics become
+    0.9 * running + 0.1 * batch (torch's own update would use the
+    unbiased variance and weigh the batch by its ``momentum``)."""
+    xf = x.float()
+    dims = [0] + list(range(2, x.dim()))
+    mean = xf.mean(dims)
+    mean2 = (xf * xf).mean(dims)
+    var = torch.clamp(mean2 - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (xf - mean.reshape(shape)) * mul.reshape(shape) \
+        + bn.bias.reshape(shape)
+
+
 def conv_in(conv, x, dtype):
     """Run torch conv module ``conv`` on x with input, weight and bias cast
     to ``dtype``."""
@@ -47,7 +78,7 @@ def conv_in(conv, x, dtype):
 
 
 class ConvBnRelu(nn.Module):
-    """Conv (2D or 3D) without bias + eval BatchNorm + optional ReLU."""
+    """Conv (2D or 3D) without bias + BatchNorm + optional ReLU."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel, ndim: int = 2,
                  stride=1, padding=0, relu: bool = True,
@@ -61,8 +92,10 @@ class ConvBnRelu(nn.Module):
         self.relu = relu
         self.dtype = dtype
 
-    def forward(self, x):
-        x = apply_bn(conv_in(self.conv, x, self.dtype), self.bn, self.dtype)
+    def forward(self, x, train: bool = False):
+        x = conv_in(self.conv, x, self.dtype)
+        x = batch_norm_train(x, self.bn) if train else \
+            apply_bn(x, self.bn, self.dtype)
         return F.relu(x) if self.relu else x
 
 
@@ -80,11 +113,12 @@ class DeconvBnRelu(nn.Module):
         self.relu = relu
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         c = self.conv
         x = F.conv_transpose3d(x.to(self.dtype), c.weight.to(self.dtype),
                                None, c.stride, c.padding, c.output_padding)
-        x = apply_bn(x, self.bn, self.dtype)
+        x = batch_norm_train(x, self.bn) if train else \
+            apply_bn(x, self.bn, self.dtype)
         return F.relu(x) if self.relu else x
 
 

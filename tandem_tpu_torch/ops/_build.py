@@ -42,6 +42,7 @@ SIGNATURES = {
     # one packed argument block (bytes) and the stream
     "tandem_warp_sample": [ctypes.c_char_p, _c_ptr],
     "tandem_bilinear_sample": [ctypes.c_char_p, _c_ptr],
+    "tandem_warp_sample_grad": [ctypes.c_char_p, _c_ptr],
     # ... and an int it sets to the number of kernels it launched
     "tandem_edge_filter": [ctypes.c_char_p, ctypes.POINTER(_c_int), _c_ptr],
     "tandem_track_reduce": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]

@@ -16,6 +16,18 @@ dropped samples get zero weights. The plain versions chain the plain
 pieces of that older path (the positions as ``ops/warp.py`` computed them,
 ``bilinear_index_plain``, ``pack_corners``, ``corner_blend_plain``), and the
 kernel equals them bit for bit.
+
+Gradient: ``warp_sample`` is differentiable with respect to the image. On
+a CUDA tensor it is a ``torch.autograd.Function`` whose backward launches
+the hand-written scatter kernel of the same source
+(``warp_sample_grad``: the forward's positions, weights and drop decisions,
+each sample's gradient times its weights added to its corners with
+float32 atomics, the sums then cast once to the image's dtype); on a CPU
+tensor the gradient is autograd's through ``warp_sample_plain``. No
+gradient flows to the matrix or the depths (the JAX package's positions
+depend only on inputs and stopped depths): the call raises if either
+requires one. The atomics add in an order that changes from run to run,
+so the gradient on the card is not bit-reproducible; the forward is.
 """
 
 from __future__ import annotations
@@ -104,6 +116,37 @@ def warp_sample_plain(img, ref_to_src, depth, min_depth_thres: float = 0.001):
     return bilinear_sample_plain(img, px, py, keep=~(z < min_depth_thres))
 
 
+def warp_sample_grad_plain(grad_out, ref_to_src, depth,
+                           min_depth_thres: float = 0.001,
+                           acc_dtype=torch.float32):
+    """The plain version of ``warp_sample_grad``: the forward's weights (of
+    grad_out's dtype, as the forward rounds them), each sample's
+    grad_out x weight added to its corners in ``acc_dtype`` (index_add_).
+
+    :param grad_out: (B, D, H, W, C) float32 or bfloat16
+    :return: (B, H, W, C) ``acc_dtype`` sums
+    """
+    B, D, H, W, C = grad_out.shape
+    px, py, z = sweep_positions(ref_to_src, depth, H, W)
+    rows, weights = bilinear_index_plain(px, py, H, W, ~(z < min_depth_thres),
+                                         B, grad_out.dtype)
+    # Table row r of image b = (yi, xi) holds the corners whose padded
+    # image coordinates are (yi, xi), (yi, xi + 1), (yi + 1, xi),
+    # (yi + 1, xi + 1).
+    r = rows.long().reshape(B, -1) - (
+        torch.arange(B, device=rows.device)[:, None] * table_rows(H, W))
+    yi, xi = r // (W + 1), r % (W + 1)
+    base = torch.arange(B, device=rows.device)[:, None] * ((H + 2) * (W + 2))
+    g = grad_out.reshape(B, -1, C).to(acc_dtype)
+    w = weights.reshape(4, B, -1).to(acc_dtype)
+    acc = torch.zeros((B * (H + 2) * (W + 2), C), dtype=acc_dtype,
+                      device=grad_out.device)
+    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        idx = (base + (yi + dy) * (W + 2) + xi + dx).reshape(-1)
+        acc.index_add_(0, idx, (g * w[k][..., None]).reshape(-1, C))
+    return acc.reshape(B, H + 2, W + 2, C)[:, 1:-1, 1:-1].contiguous()
+
+
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -140,10 +183,12 @@ def _plan(B: int, D: int, H: int, W: int, C: int, elem: int, misalign: int,
     return (vec, *sweep_tiling(B, D, H, W, C // vec, _sm_count(index)))
 
 
-# The layouts of SweepArgs and SampleArgs in csrc/bilinear_sample.cu: the
-# pointers, the int64s, the int32s and floats, 80 bytes each.
+# The layouts of SweepArgs, SampleArgs and GradArgs in
+# csrc/bilinear_sample.cu: the pointers, the int64s, the int32s and
+# floats, 80 bytes each.
 _SWEEP_ARGS = struct.Struct("<4Q2q7if")
 _SAMPLE_ARGS = struct.Struct("<5Q2q6i")
+_GRAD_ARGS = struct.Struct("<4Q2q7if")
 
 
 def _check(name: str, img, floats, keep=None):
@@ -168,7 +213,8 @@ def _check(name: str, img, floats, keep=None):
 
 
 def warp_sample(img, ref_to_src, depth, min_depth_thres: float = 0.001):
-    """Plane-sweep sample: ``img`` warped over the depth hypotheses.
+    """Plane-sweep sample: ``img`` warped over the depth hypotheses;
+    differentiable with respect to ``img`` (see the module's docstring).
 
     :param img: (B, H, W, C) float32 or bfloat16, contiguous (the source
         view's features)
@@ -185,9 +231,38 @@ def warp_sample(img, ref_to_src, depth, min_depth_thres: float = 0.001):
         raise ValueError(f"warp_sample: want ref_to_src ({B}, 3, 4) and "
                          f"depth ({B}, D, {H}, {W}), got "
                          f"{tuple(ref_to_src.shape)} {tuple(depth.shape)}")
-    D = depth.shape[1]
+    grad = torch.is_grad_enabled()
+    if grad and (ref_to_src.requires_grad or depth.requires_grad):
+        raise ValueError("warp_sample: no gradient flows to the matrix or "
+                         "the depths; detach them")
     if not img.is_cuda:
         return warp_sample_plain(img, ref_to_src, depth, min_depth_thres)
+    if grad and img.requires_grad:
+        return _WarpSample.apply(img, ref_to_src, depth, min_depth_thres)
+    return _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres)
+
+
+class _WarpSample(torch.autograd.Function):
+    """``warp_sample`` on the card with its hand-written backward."""
+
+    @staticmethod
+    def forward(ctx, img, ref_to_src, depth, min_depth_thres):
+        ctx.save_for_backward(ref_to_src, depth)
+        ctx.min_depth_thres = min_depth_thres
+        return _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ref_to_src, depth = ctx.saved_tensors
+        grad = warp_sample_grad(grad_out.contiguous(), ref_to_src, depth,
+                                ctx.min_depth_thres)
+        return grad.to(grad_out.dtype), None, None, None
+
+
+def _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres):
+    """The forward kernel's launch (the inputs checked by warp_sample)."""
+    B, H, W, C = img.shape
+    D = depth.shape[1]
     if B * D > MAX_PLANES or _too_large(H, W, C):
         raise ValueError(f"warp_sample: {B} x {D} planes of {H} x {W} x {C} "
                          "exceed the kernel's grid or offsets")
@@ -202,6 +277,47 @@ def warp_sample(img, ref_to_src, depth, min_depth_thres: float = 0.001):
         int(img.dtype == torch.bfloat16), min_depth_thres))
     warp_sample.launches += 1
     return out
+
+
+def warp_sample_grad(grad_out, ref_to_src, depth,
+                     min_depth_thres: float = 0.001):
+    """The gradient of ``warp_sample`` with respect to its image, as float32
+    sums (the backward rounds them to the image's dtype).
+
+    :param grad_out: (B, D, H, W, C) float32 or bfloat16, contiguous: the
+        gradient of the warped volume
+    :param ref_to_src, depth, min_depth_thres: the forward's
+    :return: (B, H, W, C) float32
+    """
+    if grad_out.dim() != 5 or not grad_out.is_contiguous():
+        raise ValueError("warp_sample_grad: grad_out must be a contiguous "
+                         f"(B, D, H, W, C), got {tuple(grad_out.shape)}")
+    B, D, H, W, C = grad_out.shape
+    _check("warp_sample_grad", grad_out.view(B, D * H, W, C),
+           (ref_to_src, depth))
+    if ref_to_src.shape != (B, 3, 4) or depth.shape != (B, D, H, W):
+        raise ValueError(f"warp_sample_grad: want ref_to_src ({B}, 3, 4) and "
+                         f"depth ({B}, {D}, {H}, {W}); got "
+                         f"{tuple(ref_to_src.shape)} {tuple(depth.shape)}")
+    if not grad_out.is_cuda:
+        return warp_sample_grad_plain(grad_out, ref_to_src, depth,
+                                      min_depth_thres)
+    if B * D > MAX_PLANES or _too_large(H, W, C):
+        raise ValueError(f"warp_sample_grad: {B} x {D} planes of {H} x {W} "
+                         f"x {C} exceed the kernel's grid or offsets")
+    acc = torch.zeros((B, H, W, C), dtype=torch.float32,
+                      device=grad_out.device)
+    if grad_out.numel() == 0:
+        return acc
+    vec = _vec(C, grad_out.element_size(), grad_out.data_ptr())
+    rows, planes = sweep_tiling(B, D, H, W, C // vec,
+                                _sm_count(grad_out.get_device()))
+    launch("tandem_warp_sample_grad", grad_out.device, _GRAD_ARGS.pack(
+        grad_out.data_ptr(), ref_to_src.data_ptr(), depth.data_ptr(),
+        acc.data_ptr(), B, D, H, W, C, vec, rows, planes,
+        int(grad_out.dtype == torch.bfloat16), min_depth_thres))
+    warp_sample_grad.launches += 1
+    return acc
 
 
 def bilinear_sample(img, px, py, keep=None):
@@ -238,4 +354,5 @@ def bilinear_sample(img, px, py, keep=None):
 
 
 warp_sample.launches = 0
+warp_sample_grad.launches = 0
 bilinear_sample.launches = 0

@@ -771,3 +771,156 @@ def test_trace_points_card_matches_cpu(dev):
     assert (sa == 1).float().mean() > 0.5
     for a, b in ((lo_a, lo_b), (hi_a, hi_b)):
         assert (a - b)[same].abs().max() <= 1e-4 * a.abs().max()
+
+
+# abl04 at 640x480: per stage (depth planes, H, W, feature channels).
+ABL04_STAGES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
+                "stage3": (4, 480, 640, 8)}
+
+
+def _grad_case(dev, stage: str, dtype, seed: int = 0, B: int = 1):
+    """A plane sweep at an abl04 stage shape: grad_out, ref->src matrices
+    and depths. Item 0's matrix moves the camera sideways and forward (part
+    of the sweep falls outside the image) over depths of 0.2-6 m with a
+    band behind the source camera; item 1 (B = 2, as training gives it)
+    turns the camera and moves it back, over depths of 0.5-4 m."""
+    D, Hs, Ws, C = ABL04_STAGES[stage]
+    rng = np.random.RandomState(seed)
+    f = 0.9 * Ws
+    K = np.array([[f, 0, Ws / 2], [0, f, Hs / 2], [0, 0, 1]], np.float64)
+    ang = 0.04
+    Ts = [np.eye(4), np.eye(4)]
+    Ts[0][:3, 3] = [0.2, -0.05, 0.5]
+    Ts[1][:3, :3] = [[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                     [-np.sin(ang), 0, np.cos(ang)]]
+    Ts[1][:3, 3] = [-0.1, 0.08, -0.3]
+    mat = np.stack([np.concatenate([K @ T[:3, :3] @ np.linalg.inv(K),
+                                    K @ T[:3, 3:]], 1)
+                    for T in Ts[:B]]).astype(np.float32)
+    depth = np.concatenate(
+        [rng.uniform(0.2, 6.0, (1, D, Hs, Ws)),
+         rng.uniform(0.5, 4.0, (1, D, Hs, Ws))][:B]).astype(np.float32)
+    depth[0, :, :4] = -1.0                    # behind the source camera
+    gout = torch.from_numpy(rng.randn(B, D, Hs, Ws, C).astype(np.float32))
+    return (gout.to(dev, dtype), torch.from_numpy(mat).to(dev),
+            torch.from_numpy(depth).to(dev))
+
+
+def _assert_grad_matches_plain(acc, gout, mat, depth, tol: float = 1e-4):
+    """Each batch item's float32 sums within ``tol`` of its largest
+    |gradient| of the plain gradient in float64 (the same rounded weights
+    and grad_out)."""
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample_grad_plain
+    ref = warp_sample_grad_plain(gout, mat, depth, acc_dtype=torch.float64)
+    assert acc.dtype == torch.float32
+    for b in range(ref.shape[0]):
+        top = float(ref[b].abs().max())
+        err = float((acc[b].double() - ref[b]).abs().max())
+        assert top > 0 and err <= tol * top, (b, err, top)
+
+
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage", list(ABL04_STAGES))
+def test_warp_sample_grad_kernel_matches_plain(dev, dtype, stage, B):
+    """The backward kernel at the abl04 640x480 stage shapes, B = 1 and 2
+    (each item its own matrix and depths): each item's float32 sums within
+    1e-4 of its largest |gradient| of the plain gradient in float64, one
+    launch a call."""
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample_grad
+    gout, mat, depth = _grad_case(dev, stage, dtype, B=B)
+    before = warp_sample_grad.launches
+    acc = warp_sample_grad(gout, mat, depth)
+    torch.cuda.synchronize()
+    assert warp_sample_grad.launches == before + 1
+    _assert_grad_matches_plain(acc, gout, mat, depth)
+
+
+def test_warp_sample_autograd_uses_the_kernels(dev):
+    """On a CUDA tensor that requires grad, warp_sample's backward is the
+    kernel (one launch each way, B = 2): the float32 gradient matches the
+    plain one, the bf16 gradient is the kernel's float32 sums cast once;
+    the matrix and the depths may not require grad; bad grad_out raises."""
+    from tandem_tpu_torch.ops.bilinear_sample import (
+        warp_sample, warp_sample_grad, warp_sample_grad_plain)
+    for dtype in DTYPES:
+        gout, mat, depth = _grad_case(dev, "stage2", dtype, 1, B=2)
+        img = torch.randn(gout.shape[:1] + gout.shape[2:], device=dev,
+                          dtype=dtype, requires_grad=True)
+        f0, b0 = warp_sample.launches, warp_sample_grad.launches
+        out = warp_sample(img, mat, depth)
+        got, = torch.autograd.grad(out, img, gout)
+        torch.cuda.synchronize()
+        assert (warp_sample.launches, warp_sample_grad.launches) == (
+            f0 + 1, b0 + 1)
+        assert got.dtype == dtype
+        ref = warp_sample_grad_plain(gout, mat, depth)
+        if dtype == torch.float32:
+            assert float((got - ref).abs().max()) <= 1e-5 * float(
+                ref.abs().max())
+        else:
+            # the kernel's sums differ from ref's by atomics' order only;
+            # one bf16 rounding of each sum apart at most
+            assert torch.allclose(got.float(), ref, rtol=2 ** -8,
+                                  atol=1e-5 * float(ref.abs().max()))
+    with pytest.raises(ValueError, match="no gradient"):
+        warp_sample(img, mat.clone().requires_grad_(), depth)
+    with pytest.raises(ValueError):
+        warp_sample_grad(gout.transpose(2, 3), mat, depth)
+    with pytest.raises(ValueError):
+        warp_sample_grad(gout, mat, depth[:, :, :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card(dev, dtype, monkeypatch):
+    """One train step of the port's trainer on the card (replica_traj
+    tuples 0 and 7 at 64x96, planes (8, 8, 4), V = 7): both sample kernels
+    launch once a source view and stage (18 each), every backward call of
+    the step (B = 2) matches the plain gradient on its own inputs, the loss
+    and every gradient are finite, the parameters move, and the loss is
+    within 1e-3 relative of the same step's loss on the CPU (float32;
+    bf16: 5e-2)."""
+    import os
+
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    from tandem_tpu_torch.ops import bilinear_sample as bs
+    from tandem_tpu_torch.ops.bilinear_sample import (warp_sample,
+                                                      warp_sample_grad)
+    from tandem_tpu_torch.train import trainer as pt
+    calls = []
+
+    def recording(grad_out, ref_to_src, depth, min_depth_thres=0.001):
+        acc = warp_sample_grad(grad_out, ref_to_src, depth, min_depth_thres)
+        calls.append((acc.clone(), grad_out.clone(), ref_to_src.clone(),
+                      depth.clone()))
+        return acc
+    # the wrapper counts its launches on the module's name: the recorder's
+    recording.launches = 0
+    monkeypatch.setattr(bs, "warp_sample_grad", recording)
+    config = pcfg.default()
+    config.update({"MODEL.DEPTH_NUM": (8, 8, 4), "DATA.IMG_HEIGHT": 64,
+                   "DATA.IMG_WIDTH": 96, "TRAIN.COMPUTE_DTYPE": dtype})
+    root = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "replica_traj")
+    batch = collate([MVSDataset(root, "val", height=64, width=96)[i]
+                     for i in (0, 7)])
+    losses = {}
+    for where in ("cpu", dev):
+        model, state = pt.create_train_state(
+            config, torch.Generator().manual_seed(0), 50, device=where)
+        before = [p.detach().clone() for p in model.parameters()]
+        f0 = warp_sample.launches
+        state, m = pt.make_train_step(model, config)(
+            state, pt.batch_to_device(batch, where))
+        losses[str(where)] = float(m["loss"])
+        assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+        assert any(not torch.equal(a, p) for a, p in
+                   zip(before, model.parameters()))
+    torch.cuda.synchronize()
+    assert (warp_sample.launches - f0, recording.launches) == (18, 18)
+    assert len(calls) == 18 and calls[0][1].shape[0] == 2
+    for acc, gout, mat, depth in calls:
+        _assert_grad_matches_plain(acc, gout, mat, depth)
+    tol = 1e-3 if dtype == "float32" else 5e-2
+    assert abs(losses[str(dev)] / losses["cpu"] - 1) < tol, losses
