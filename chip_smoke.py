@@ -42,8 +42,8 @@ Phases, each printing its numbers before the last line:
               source camera, and without): each item's float32 sums
               within GRAD_TOL of its largest |gradient| of the plain
               gradient in float64, with its event and profiler device
-              times, its byte bound and grid_sample's backward on the
-              same grid;
+              times, its byte bound, grid_sample's backward on the
+              same grid, the samples a touched cell and its atomics;
               row_gather, also at P4's shape;
   4. track kernels  K6 track_reduce against a float64 evaluation of its
               plain version at the tracker's level caps (640x480 level 0,
@@ -119,7 +119,9 @@ Phases, each printing its numbers before the last line:
               falling); every step launches the forward sample and its
               backward kernel 18 times each, and the first step of each
               curve holds every backward call it made to the plain
-              gradient (GRAD_TOL, each batch item);
+              gradient (GRAD_TOL, each batch item) and times each call's
+              kernel and grid_sample's backward (CUDA events), with the
+              samples a touched source cell;
  16. eval     the port's tandem_eval CLI on replica_mini with the trained
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
@@ -1015,10 +1017,13 @@ def _sweep_grad_kernel(dev, out: dict):
     golden sweep itself, f32 and bf16 grad_out; each item's float32 sums
     within GRAD_TOL of its largest |gradient| in float64; the kernel's
     time by events and by the profiler, the plain version's (torch ops,
-    float32 sums), its byte bound, and grid_sample's backward (the input's
-    gradient) on the same grid."""
+    float32 sums), its byte bound, grid_sample's backward (the input's
+    gradient) on the same grid, the samples a touched source cell and the
+    atomics the kernel issues (experiments/grad_contention.py)."""
     import torch
 
+    from tandem_tpu_torch.experiments.grad_contention import atomics, cells
+    from tandem_tpu_torch.ops import bilinear_sample as bs
     from tandem_tpu_torch.ops.bilinear_sample import (sweep_positions,
                                                       warp_sample_grad,
                                                       warp_sample_grad_plain)
@@ -1060,6 +1065,10 @@ def _sweep_grad_kernel(dev, out: dict):
             # in the image, in front of the source camera.
             read = int((~(z < 0.001) & (px > -1) & (px < W) & (py > -1)
                         & (py < H)).sum())
+            vec = bs._grad_vec(C, gout.element_size(), gout.data_ptr())
+            share = cells(mat, depth, H, W)
+            ops = atomics(mat, depth, H, W, C, vec, bs.grad_tiling(
+                2, D, H, W, C // vec, bs._sm_count(dev.index or 0)))
             bound = _bound(read * C * gout.element_size()
                            + _nbytes(mat, depth, acc),
                            gout.numel() // C * SAMPLE_OPS + read * 8 * C)
@@ -1075,7 +1084,11 @@ def _sweep_grad_kernel(dev, out: dict):
                 f"{bound['bound_ms'] / dev_ms['kernel']:.1%} of the device "
                 f"time; plain {t['plain']:.4f} ms; grid_sample backward "
                 f"{t['grid_sample']:.4f} ms (events) "
-                f"{dev_ms['grid_sample']:.4f} ms (device)")
+                f"{dev_ms['grid_sample']:.4f} ms (device); "
+                f"{share['per_cell']:.2f} samples a touched cell; atomics: "
+                f"{ops['runs']:,} of {vec} channels "
+                f"({ops['runs_scalar']:,} float32 additions; one thread a "
+                f"sample would add {ops['per_sample']:,})")
             if stage == "stage1" and dtype == torch.float32:
                 res.update(ms=t["kernel"], plain_ms=t["plain"],
                            device_ms=dev_ms["kernel"],
@@ -2355,12 +2368,66 @@ def _recorded_step(step, state, batch):
     return state, m, calls
 
 
+def _recorded_times(calls) -> dict:
+    """The backward kernel and grid_sample's backward
+    (aten.grid_sampler_2d_backward: the input's gradient on the warp's
+    grid) on each recorded call of a train step, timed with CUDA events
+    (median of 10 back-to-back calls: the device's time, as the calls
+    queue faster than they run), summed by stage shape (D, H, W, C) and in
+    all, with the samples a touched source cell. CUDA events, not the
+    profiler: late in a long run its sessions saw only part of the
+    kernels, then none. These launches are measurements: the kernel's
+    launch count is left as the step made it."""
+    import torch
+
+    from tandem_tpu_torch.experiments.grad_contention import cells
+    from tandem_tpu_torch.ops.bilinear_sample import (sweep_positions,
+                                                      warp_sample_grad)
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    launches = warp_sample_grad.launches
+    out = {}
+    for g, mat, depth, thres, _ in calls:
+        B, D, H, W, C = g.shape
+        px, py, z = sweep_positions(mat, depth, H, W)
+        feat = torch.zeros((B, H, W, C), device=g.device, dtype=g.dtype)
+        nchw, grid = _grid_sample_args(feat, px, py, ~(z < thres), H, W)
+        gnchw = g.reshape(B, D * H, W, C).permute(0, 3, 1, 2).contiguous()
+        share = cells(mat, depth, H, W)
+        r = out.setdefault((D, H, W, C), {"calls": 0, "kernel_ms": 0.0,
+                                          "grid_sample_ms": 0.0, "kept": 0,
+                                          "cells": 0})
+        r["calls"] += 1
+        r["kernel_ms"] += cuda_ms(
+            lambda: warp_sample_grad(g, mat, depth, thres), iters=10)
+        r["grid_sample_ms"] += cuda_ms(
+            lambda: torch.ops.aten.grid_sampler_2d_backward(
+                gnchw, nchw, grid, 0, 0, True, [True, False]), iters=10)
+        r["kept"] += share["kept"]
+        r["cells"] += share["cells"]
+    warp_sample_grad.launches = launches
+    return out
+
+
+def _times_line(times: dict) -> str:
+    parts = [f"D={D} {W}x{H} C={C}: {r['calls']} calls, kernel "
+             f"{r['kernel_ms']:.4f} ms, grid_sample backward "
+             f"{r['grid_sample_ms']:.4f} ms, "
+             f"{r['kept'] / max(r['cells'], 1):.2f} samples a touched cell"
+             for (D, H, W, C), r in times.items()]
+    k = sum(r["kernel_ms"] for r in times.values())
+    lib = sum(r["grid_sample_ms"] for r in times.values())
+    return (f"the first step's backward calls by CUDA events: kernel "
+            f"{k:.4f} ms, grid_sample backward {lib:.4f} ms in all ("
+            + "; ".join(parts) + ")")
+
+
 def _curve(dev, config, batch, steps: int) -> dict:
     """``steps`` train steps on one batch from the seeded initialization:
     losses, stage-1 abs_rel, host-clock ms a step (synchronized), the
     first step's backward-kernel calls, each held to its plain version
-    (``_grad_error``, every batch item), and the peak device memory of the
-    steps after it (the first holds the recorded calls)."""
+    (``_grad_error``, every batch item) and timed (``_recorded_times``),
+    and the peak device memory of the steps after it (the first holds the
+    recorded calls)."""
     import torch
 
     from tandem_tpu_torch.train import trainer as pt
@@ -2385,12 +2452,13 @@ def _curve(dev, config, batch, steps: int) -> dict:
                                 depth, thres)
                     for k, (g, mat, depth, thres, acc) in enumerate(calls)]
             n_calls = len(calls)
+            times = _recorded_times(calls)
             del calls
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
     return {"losses": losses, "absrel": absrel, "ms": ms,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
-            "grad_calls": n_calls,
+            "grad_calls": n_calls, "grad_times": times,
             "grad_err": max(e / top for e, top in errs)}
 
 
@@ -2472,6 +2540,7 @@ def phase_train(dev) -> dict:
             f"{curve['grad_err']:.2e} of their plain gradient's max (bar "
             f"{GRAD_TOL:g}, each item); all losses "
             f"{[round(x, 4) for x in L]}")
+        log(f"[train] f32 curve, {_times_line(curve['grad_times'])}")
         if not (np.isfinite(L).all() and np.mean(L[-5:])
                 < 0.5 * np.mean(L[:5])):
             raise AssertionError(f"train curve: losses {L}")
@@ -2488,6 +2557,7 @@ def phase_train(dev) -> dict:
             f"{bf['peak_gb']:.2f} GB; the first step's {bf['grad_calls']} "
             f"backward calls within {bf['grad_err']:.2e} of their plain "
             f"gradient's max")
+        log(f"[train] bf16 curve, {_times_line(bf['grad_times'])}")
         if not (np.isfinite(Lb).all()
                 and np.mean(Lb[-3:]) < np.mean(Lb[:3])):
             raise AssertionError(f"train bf16: losses {Lb}")

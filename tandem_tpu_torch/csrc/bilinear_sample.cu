@@ -6,8 +6,10 @@
 //     (B, D, H, W, C);
 //   explicit (tandem_bilinear_sample): the positions are given, (B, N).
 // And the plane sweep's gradient with respect to the image
-// (tandem_warp_sample_grad, at the end of the file): the same cells,
-// scattered with atomics.
+// (tandem_warp_sample_grad, at the end of the file): the same cells, each
+// thread summing a run of one pixel's planes in registers and adding a
+// sum to the image gradient with one vector atomic a corner where the
+// run's cell changes.
 //
 // Replaces on the main path the TPU kernels experiments/bench_idxchain.py
 // make_pallas (P5, the bilinear index chain) and
@@ -242,65 +244,6 @@ __device__ __forceinline__ void sample_row(const T* __restrict__ image,
   }
 }
 
-// The gradient of blend: grad_out's channels [c, c + VEC) of one sample
-// (at src), times each corner's weight, added to the float32 image
-// gradient at the corners that lie in the image and weigh more than zero.
-template <typename T, int VEC>
-__device__ __forceinline__ void scatter(float* __restrict__ grad,
-                                        const Cell& s, int c, int H, int W,
-                                        int C, const T* __restrict__ src) {
-  const int x = (s.xy & 0xffff) - 1;
-  const int y = (s.xy >> 16) - 1;
-  const bool x0in = x >= 0, x1in = x + 1 < W;
-  const bool y0in = y >= 0, y1in = y + 1 < H;
-  const bool a00 = y0in && x0in && s.w00 != 0.0f;
-  const bool a10 = y0in && x1in && s.w10 != 0.0f;
-  const bool a01 = y1in && x0in && s.w01 != 0.0f;
-  const bool a11 = y1in && x1in && s.w11 != 0.0f;
-  if (!(a00 || a10 || a01 || a11)) return;  // dropped or outside
-  const Vec<T, VEC> g = load<T, VEC>(src);
-  const int off = (y * W + x) * C + c;  // the image has < 2^31 values
-#pragma unroll
-  for (int e = 0; e < VEC; ++e) {
-    const float v = to_f32(g.v[e]);
-    if (a00) atomicAdd(grad + off + e, __fmul_rn(v, s.w00));
-    if (a10) atomicAdd(grad + off + C + e, __fmul_rn(v, s.w10));
-    if (a01) atomicAdd(grad + off + W * C + e, __fmul_rn(v, s.w01));
-    if (a11) atomicAdd(grad + off + W * C + C + e, __fmul_rn(v, s.w11));
-  }
-}
-
-// sample_row's walk over the warp's 32 samples, scattering grad_out
-// (gout: sample j's C values at gout[j * C]) into the image gradient.
-template <typename T, int VEC>
-__device__ __forceinline__ void scatter_row(float* __restrict__ grad,
-                                            const Cell& own, int n, int lane,
-                                            int H, int W, int C,
-                                            const T* __restrict__ gout) {
-  const int L = C / VEC;  // lanes a sample
-  if (L == 1) {
-    if (lane < n) scatter<T, VEC>(grad, own, 0, H, W, C, gout + lane * C);
-  } else if (32 % L == 0) {
-    const int per = 32 / L;
-    const int j0 = lane / L;
-    const int c = (lane - j0 * L) * VEC;
-#pragma unroll 2
-    for (int k = 0; k < L; ++k) {
-      const int j = j0 + k * per;
-      const Cell s = shfl_cell(own, j);
-      if (j < n) scatter<T, VEC>(grad, s, c, H, W, C, gout + j * C + c);
-    }
-  } else {
-#pragma unroll 2
-    for (int t = lane; t < 32 * L; t += 32) {
-      const int j = t / L;
-      const int c = (t - j * L) * VEC;
-      const Cell s = shfl_cell(own, j);
-      if (j < n) scatter<T, VEC>(grad, s, c, H, W, C, gout + j * C + c);
-    }
-  }
-}
-
 // Geometry of one launch. Sweep: B images, D planes each, the reference
 // grid H x W (the image's), planes_per_warp planes a warp. Explicit: B
 // images, one plane of one row of N samples each, planes_per_warp 1.
@@ -311,11 +254,45 @@ struct Grid {
   int rows_per_block;
 };
 
-// A warp's share of a plane sweep: 32 consecutive pixels of one row of
-// the reference (n of them in the image) over np consecutive planes from
-// d0 of image b, and lane's cell on each plane. The forward kernel and the
-// gradient kernel both take their samples from here, so they see the same
-// positions, weights, cells and drop decisions, bit for bit.
+// A reference pixel's ray in the source camera: dir_i = (r_i0 x + r_i1 y)
+// + r_i2 and t_i, from the 3x4 ref->src matrix m.
+struct Ray {
+  float dir[3], t[3];
+};
+
+__device__ __forceinline__ Ray pixel_ray(const float* __restrict__ m,
+                                         float x, float y) {
+  Ray r;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    r.dir[i] = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 4 * i), x),
+                                   __fmul_rn(__ldg(m + 4 * i + 1), y)),
+                         __ldg(m + 4 * i + 2));
+    r.t[i] = __ldg(m + 4 * i + 3);
+  }
+  return r;
+}
+
+// The cell of the ray's sample at depth d: p_i = dir_i d + t_i, z clamped
+// away from 0 at 1e-12, px = p0 / z, py = p1 / z, dropped if z <
+// min_depth. The forward kernel and the gradient kernel both take their
+// samples from here, so they see the same positions, weights, cells and
+// drop decisions, bit for bit.
+template <typename T>
+__device__ __forceinline__ Cell plane_cell(const Ray& r, float d,
+                                           float min_depth, int H, int W) {
+  float p[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) p[i] = __fadd_rn(__fmul_rn(r.dir[i], d), r.t[i]);
+  const float z = p[2];
+  const float zs = fabsf(z) < 1e-12f ? 1e-12f : z;
+  return make_cell<T>(__fdiv_rn(p[0], zs), __fdiv_rn(p[1], zs),
+                      !(z < min_depth), H, W);
+}
+
+// A warp's share of a plane sweep in the forward kernel: 32 consecutive
+// pixels of one row of the reference (n of them in the image) over np
+// consecutive planes from d0 of image b, and lane's cell on each plane.
 struct SweepTile {
   int64_t b, d0, plane_size, pix;
   int lane, n, np;
@@ -344,18 +321,8 @@ __device__ __forceinline__ bool sweep_tile(const Grid& g,
   const int64_t plane_size = static_cast<int64_t>(g.rows) * g.cols;
   const int64_t pix = static_cast<int64_t>(row) * g.cols + col;
 
-  // The pixel's ray: dir_i = (r_i0 x + r_i1 y) + r_i2, and t_i.
-  const float* m = mat + b * 12;
-  const float x = static_cast<float>(col);
-  const float y = static_cast<float>(row);
-  float dir[3], tr[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    dir[i] = __fadd_rn(__fadd_rn(__fmul_rn(__ldg(m + 4 * i), x),
-                                 __fmul_rn(__ldg(m + 4 * i + 1), y)),
-                       __ldg(m + 4 * i + 2));
-    tr[i] = __ldg(m + 4 * i + 3);
-  }
+  const Ray ray = pixel_ray(mat + b * 12, static_cast<float>(col),
+                            static_cast<float>(row));
   // All of the warp's depths first: one DRAM latency a warp, not one a
   // plane (a plane's rounds are too short to hide it).
   const float* dp = depth + (b * g.D + d0) * plane_size + pix;
@@ -368,18 +335,9 @@ __device__ __forceinline__ bool sweep_tile(const Grid& g,
   // Then every plane's cell (independent chains, two divisions each).
 #pragma unroll
   for (int k = 0; k < kMaxPlanes; ++k) {
-    t.cells[k] = Cell{0.0f, 0.0f, 0.0f, 0.0f, 0};
-    if (valid && k < np) {
-      float p[3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        p[i] = __fadd_rn(__fmul_rn(dir[i], dv[k]), tr[i]);
-      }
-      const float z = p[2];
-      const float zs = fabsf(z) < 1e-12f ? 1e-12f : z;
-      t.cells[k] = make_cell<T>(__fdiv_rn(p[0], zs), __fdiv_rn(p[1], zs),
-                                !(z < min_depth), g.H, g.W);
-    }
+    t.cells[k] = valid && k < np
+                     ? plane_cell<T>(ray, dv[k], min_depth, g.H, g.W)
+                     : Cell{0.0f, 0.0f, 0.0f, 0.0f, 0};
   }
   t.b = b;
   t.d0 = d0;
@@ -413,31 +371,261 @@ __global__ void __launch_bounds__(kWarps * 32)
 // The plane sweep's gradient with respect to the image: each sample's
 // grad_out, times its four weights, added to its corners. Replaces the
 // scatter-add that XLA derives from the gather of
-// tandem_tpu/ops/warp.py:147-157 for jax.grad. Bound: memory, by the read
-// of grad_out (C values a sample, read once, coalesced as the forward
-// writes it) and the float32 atomics into the image gradient, which stays
-// in the 50 MB L2 (2.5-9.8 MB a view at the abl04 stages). One thread a
-// (sample, channel vector), up to 4 x VEC atomicAdds each; neighbouring
-// samples hit neighbouring corners, so the atomics of a warp contend for
-// the same L2 lines. The order of the additions changes from run to run:
-// the gradient is not bit-reproducible, to a few float32 ulps of each sum.
+// tandem_tpu/ops/warp.py:147-157 for jax.grad.
+//
+// Bound: memory, by the read of grad_out (C values a sample in front of
+// the source camera with a corner in its image, read once, coalesced as
+// the forward writes it); the image gradient (2.5-9.8 MB a view at the
+// abl04 stages) stays in the 50 MB L2. A design with one thread a
+// (sample, channel vector) issues 4 x C float32 atomics a sample and is
+// bound by their number (136-172 G a second on the H100 at every stage):
+// a golden stage-1 sweep puts 47 samples on a touched source cell. What
+// this design does about it:
+// - a thread keeps one (pixel, channel vector) and walks `planes`
+//   consecutive depth planes of it (GradGrid::planes, chosen by the
+//   wrapper from D and the card's SM count). While the sample's cell stays
+//   the same it sums grad_out x weight into four register accumulators of
+//   VEC floats; when the cell changes, and after its last plane, it adds
+//   each sum with one atomic, and only for the corners that lie in the
+//   image and weighed more than 0. A dropped sample, or one whose cell
+//   lies outside, adds nothing, reads no grad_out and leaves the run as it
+//   was. On the golden stage-1 sweep a pixel's 48 planes make ~12 runs
+//   (the sample crosses cells along its epipolar line): 4.5x fewer float32
+//   additions into memory (experiments/grad_contention.py);
+// - a lane sums VEC = 4 channels (one 16-byte float4), in f32 and bf16
+//   alike (a bf16 lane reads 8 bytes of grad_out), and flushes a corner
+//   with one float4 atomicAdd (sm_90's vector reduction on global memory):
+//   4x fewer atomic operations again. Where grad_out's alignment leaves a
+//   lane 2 or 1 channels (the wrapper's choice of VEC) the flush is one
+//   float2 atomicAdd or scalar ones;
+// - the lanes of a warp take consecutive (pixel, channel vector) items of
+//   one plane, 32 / L pixels of L = C / VEC lanes, so each plane's read of
+//   grad_out is one contiguous segment a warp (512 bytes in f32). Where L
+//   divides 32 the cells are computed once a (pixel, plane), not once a
+//   lane: in a round of L planes lane l computes the cell of pixel
+//   l % (32 / L) on plane l / (32 / L) and the warp takes each plane's
+//   cells from their lanes by __shfl_sync; the next round's depth is
+//   loaded while this round runs. Otherwise (L = 3, 5, ... or > 32) each
+//   lane computes its own pixel's cells;
+// - kBatch planes' grad_out reads are issued before their sums, so that
+//   several loads of a thread are in flight at once.
+// The cells, weights and drop decisions are the forward's (plane_cell);
+// the products are fused into the sums (fmaf). The order of the atomics
+// changes from run to run: the gradient is not bit-reproducible, to a few
+// float32 ulps of each sum.
+constexpr int kBatch = 4;
+
+// Geometry of a gradient launch: the image (= the reference grid) H x W x
+// C, D planes; a thread walks `planes` consecutive planes; grid.y is the
+// images x the `groups` plane groups. The image has < 2^31 values, so the
+// indices within one plane are 32-bit.
+struct GradGrid {
+  int64_t D;
+  int H, W, C, planes, groups;
+};
+
+// The corners of a sample's cell that lie in the image and weigh more
+// than 0: bit 0 (x0, y0), bit 1 (x1, y0), bit 2 (x0, y1), bit 3 (x1, y1).
+// None for a dropped sample (its weights are 0) or a cell outside.
+__device__ __forceinline__ unsigned corner_bits(const Cell& s, int H,
+                                                int W) {
+  const int x = (s.xy & 0xffff) - 1;
+  const int y = (s.xy >> 16) - 1;
+  const bool x0in = x >= 0, x1in = x + 1 < W;
+  const bool y0in = y >= 0, y1in = y + 1 < H;
+  return (y0in && x0in && s.w00 != 0.0f ? 1u : 0u) |
+         (y0in && x1in && s.w10 != 0.0f ? 2u : 0u) |
+         (y1in && x0in && s.w01 != 0.0f ? 4u : 0u) |
+         (y1in && x1in && s.w11 != 0.0f ? 8u : 0u);
+}
+
+// VEC float32 sums added at p (aligned to VEC floats) by one atomic: the
+// float4 / float2 atomicAdd on global memory of compute capability 9.x
+// (sm_90_rt.h), or scalar atomics for one channel.
+template <int VEC>
+__device__ __forceinline__ void atomic_add(float* p, const float (&a)[VEC]) {
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p),
+              make_float4(a[0], a[1], a[2], a[3]));
+  } else if constexpr (VEC == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(a[0], a[1]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) atomicAdd(p + e, a[e]);
+  }
+}
+
+// A thread's run of samples on one cell: each corner's sum of grad_out x
+// weight, the corners to add (corner_bits of the run's samples), the cell.
+template <int VEC>
+struct Run {
+  float a[4][VEC];
+  unsigned bits;
+  int xy;
+};
+
+// The run's sums added to the image gradient (grad: this thread's channel
+// vector of pixel (0, 0)).
+template <int VEC>
+__device__ __forceinline__ void flush(const Run<VEC>& r,
+                                      float* __restrict__ grad, int W,
+                                      int C) {
+  if (r.bits == 0) return;
+  const int x = (r.xy & 0xffff) - 1;
+  const int y = (r.xy >> 16) - 1;
+  float* p = grad + (y * W + x) * C;  // the image has < 2^31 values
+  if (r.bits & 1u) atomic_add<VEC>(p, r.a[0]);
+  if (r.bits & 2u) atomic_add<VEC>(p + C, r.a[1]);
+  if (r.bits & 4u) atomic_add<VEC>(p + W * C, r.a[2]);
+  if (r.bits & 8u) atomic_add<VEC>(p + W * C + C, r.a[3]);
+}
+
+// A live sample (bits != 0, g its grad_out) into the run; a new cell
+// flushes the run first and starts the next.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_sample(Run<VEC>& r, const Cell& s,
+                                           unsigned bits,
+                                           const Vec<T, VEC>& g,
+                                           float* __restrict__ grad, int W,
+                                           int C) {
+  if (s.xy != r.xy) {
+    flush<VEC>(r, grad, W, C);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) r.a[q][e] = 0.0f;
+    }
+    r.bits = 0;
+    r.xy = s.xy;
+  }
+  r.bits |= bits;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float v = to_f32(g.v[e]);
+    r.a[0][e] = fmaf(v, s.w00, r.a[0][e]);
+    r.a[1][e] = fmaf(v, s.w10, r.a[1][e]);
+    r.a[2][e] = fmaf(v, s.w01, r.a[2][e]);
+    r.a[3][e] = fmaf(v, s.w11, r.a[3][e]);
+  }
+}
+
+// kBatch consecutive planes of a thread (their cells s and corner bits
+// given, grad_out of the first at src): the live ones' reads first, all
+// in flight together, then their sums in plane order.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_batch(Run<VEC>& r,
+                                          const Cell (&s)[kBatch],
+                                          const unsigned (&bits)[kBatch],
+                                          const T* __restrict__ src,
+                                          int64_t step,
+                                          float* __restrict__ grad, int W,
+                                          int C) {
+  Vec<T, VEC> v[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    if (bits[u]) v[u] = load<T, VEC>(src + u * step);
+  }
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    if (bits[u]) add_sample<T, VEC>(r, s[u], bits[u], v[u], grad, W, C);
+  }
+}
+
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
-    warp_sample_grad_kernel(const T* __restrict__ grad_out, Grid g,
+    warp_sample_grad_kernel(const T* __restrict__ grad_out, GradGrid g,
                             const float* __restrict__ mat,
                             const float* __restrict__ depth, float min_depth,
                             float* __restrict__ grad) {
-  SweepTile t;
-  if (!sweep_tile<T>(g, mat, depth, min_depth, t)) return;
-  float* gimg = grad + t.b * g.H * g.W * static_cast<int64_t>(g.C);
-  const T* src =
-      grad_out + ((t.b * g.D + t.d0) * t.plane_size + t.pix - t.lane) * g.C;
+  const int lane = threadIdx.x & 31;
+  const int L = g.C / VEC;  // lanes (channel vectors) a pixel
+  const int plane_size = g.H * g.W;
+  const int b = static_cast<int>(blockIdx.y) / g.groups;
+  const int64_t d0 =
+      static_cast<int64_t>(blockIdx.y - b * g.groups) * g.planes;
+  const int np = static_cast<int>(min(d0 + g.planes, g.D) - d0);
+  const unsigned item = blockIdx.x * blockDim.x + threadIdx.x;
+  const int pix = static_cast<int>(item / L);
+  const int c = static_cast<int>(item - pix * L) * VEC;
+  const float* m = mat + b * 12;
+  // Plane k of pixel p: depth at dp[k * plane_size + p], this thread's
+  // grad_out at src + k * step.
+  const float* dp = depth + (b * g.D + d0) * plane_size;
+  const int64_t step = static_cast<int64_t>(plane_size) * g.C;
+  const T* src = grad_out + (b * g.D + d0) * step +
+                 static_cast<int64_t>(pix) * g.C + c;
+  float* gimg = grad + b * step + c;
+  Run<VEC> run;
 #pragma unroll
-  for (int k = 0; k < kMaxPlanes; ++k) {
-    if (k >= t.np) break;  // uniform
-    scatter_row<T, VEC>(gimg, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
-                        src + k * t.plane_size * g.C);
+  for (int q = 0; q < 4; ++q) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) run.a[q][e] = 0.0f;
   }
+  run.bits = 0;
+  run.xy = -1;
+  if (32 % L == 0) {  // uniform: a warp is px whole pixels
+    const int px = 32 / L;
+    const int pix0 = pix - lane / L;
+    if (pix0 >= plane_size) return;  // the whole warp
+    const int j = lane / L;          // this lane's pixel in the warp
+    // This lane's cells: pixel pix0 + lane % px on plane lane / px of each
+    // round of L planes.
+    const int pc = pix0 + lane % px;
+    const bool vc = pc < plane_size;
+    const Ray ray = pixel_ray(m, static_cast<float>(pc % g.W),
+                              static_cast<float>(pc / g.W));
+    const float* dc =
+        dp + static_cast<int64_t>(lane / px) * plane_size + pc;
+    float dnext = vc && lane / px < np ? dc[0] : 0.0f;
+    for (int r0 = 0; r0 < np; r0 += L) {  // uniform
+      const int kc = r0 + lane / px;
+      const float d = dnext;
+      if (vc && kc + L < np) {
+        dnext = dc[static_cast<int64_t>(r0 + L) * plane_size];
+      }
+      const Cell mine = vc && kc < np
+                            ? plane_cell<T>(ray, d, min_depth, g.H, g.W)
+                            : Cell{0.0f, 0.0f, 0.0f, 0.0f, 0};
+      const int nr = min(L, np - r0);
+      for (int k0 = 0; k0 < nr; k0 += kBatch) {
+        Cell s[kBatch];
+        unsigned bits[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int k = k0 + u;
+          s[u] = shfl_cell(mine, (k < L ? k : 0) * px + j);
+          bits[u] = k < nr && pix < plane_size
+                        ? corner_bits(s[u], g.H, g.W)
+                        : 0u;
+        }
+        add_batch<T, VEC>(run, s, bits, src + (r0 + k0) * step, step, gimg,
+                          g.W, g.C);
+      }
+    }
+  } else {  // each lane its own pixel's cells
+    if (pix >= plane_size) return;
+    const Ray ray = pixel_ray(m, static_cast<float>(pix % g.W),
+                              static_cast<float>(pix / g.W));
+    for (int k0 = 0; k0 < np; k0 += kBatch) {
+      float d[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        d[u] = k0 + u < np
+                   ? dp[static_cast<int64_t>(k0 + u) * plane_size + pix]
+                   : 0.0f;
+      }
+      Cell s[kBatch];
+      unsigned bits[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        s[u] = plane_cell<T>(ray, d[u], min_depth, g.H, g.W);
+        bits[u] = k0 + u < np ? corner_bits(s[u], g.H, g.W) : 0u;
+      }
+      add_batch<T, VEC>(run, s, bits, src + k0 * step, step, gimg, g.W,
+                        g.C);
+    }
+  }
+  flush<VEC>(run, gimg, g.W, g.C);
 }
 
 template <typename T, int VEC>
@@ -495,7 +683,7 @@ struct SweepLaunch {
 
 struct GradLaunch {
   const void* grad_out;
-  Grid g;
+  GradGrid g;
   int64_t B;
   const float* mat;
   const float* depth;
@@ -504,11 +692,17 @@ struct GradLaunch {
   cudaStream_t stream;
   template <typename T, int VEC>
   int run() const {
-    const int64_t groups = (g.D + g.planes_per_warp - 1) / g.planes_per_warp;
-    warp_sample_grad_kernel<T, VEC><<<grid_of(g, B * groups), kWarps * 32, 0,
-                                      stream>>>(
-        static_cast<const T*>(grad_out), g, mat, depth, min_depth, grad);
-    return static_cast<int>(cudaGetLastError());
+    if constexpr (VEC > 4) {  // a lane sums one float4 at most
+      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      const int64_t items = static_cast<int64_t>(g.H) * g.W * (g.C / VEC);
+      const dim3 grid(
+          static_cast<unsigned>((items + kWarps * 32 - 1) / (kWarps * 32)),
+          static_cast<unsigned>(B * g.groups));
+      warp_sample_grad_kernel<T, VEC><<<grid, kWarps * 32, 0, stream>>>(
+          static_cast<const T*>(grad_out), g, mat, depth, min_depth, grad);
+      return static_cast<int>(cudaGetLastError());
+    }
   }
 };
 
@@ -632,31 +826,30 @@ struct GradArgs {
   float* grad;           // (B, H, W, C) float32, zeroed: the gradient's sums
   int64_t B, D;
   int H, W, C;
-  int vec;               // channels a lane, as SweepArgs; grad_out aligned
-  int rows_per_block;    // 1, 2, 4 or 8
-  int planes_per_warp;   // 1-4
+  int vec;               // channels a lane: 4, 2 or 1, C % vec == 0,
+                         // grad_out aligned to vec elements
+  int planes;            // consecutive planes a thread walks, >= 1
   int bf16;
   float min_depth;
+  int unused;
 };
 static_assert(sizeof(GradArgs) == 80, "GradArgs layout");
 
-// The plane sweep's image gradient: one launch of the scatter kernel,
+// The plane sweep's image gradient: one launch of the gradient kernel,
 // which adds into the zeroed float32 sums. All arrays contiguous.
 // Launches on ``stream`` without synchronising; returns
 // cudaGetLastError().
 extern "C" int tandem_warp_sample_grad(const GradArgs* a,
                                        cudaStream_t stream) {
   if (a->B <= 0 || a->D <= 0) return 0;
-  const int planes = a->planes_per_warp, rows = a->rows_per_block;
-  const int64_t groups = planes < 1 || planes > kMaxPlanes
-                             ? 0
-                             : (a->D + planes - 1) / planes;
-  if (bad_geometry(a->H, a->W, a->C, a->vec) || groups < 1 ||
-      a->B * groups > 65535 ||
-      (rows != 1 && rows != 2 && rows != 4 && rows != 8)) {
+  const int64_t groups =
+      a->planes < 1 ? 0 : (a->D + a->planes - 1) / a->planes;
+  if (bad_geometry(a->H, a->W, a->C, a->vec) || a->vec > 4 || groups < 1 ||
+      a->B * groups > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Grid g{a->D, a->H, a->W, planes, a->H, a->W, a->C, rows};
+  const GradGrid g{a->D, a->H, a->W, a->C, a->planes,
+                   static_cast<int>(groups)};
   return dispatch(a->bf16, a->vec,
                   GradLaunch{a->grad_out, g, a->B, a->mat, a->depth,
                              a->min_depth, a->grad, stream});

@@ -19,10 +19,11 @@ kernel equals them bit for bit.
 
 Gradient: ``warp_sample`` is differentiable with respect to the image. On
 a CUDA tensor it is a ``torch.autograd.Function`` whose backward launches
-the hand-written scatter kernel of the same source
-(``warp_sample_grad``: the forward's positions, weights and drop decisions,
-each sample's gradient times its weights added to its corners with
-float32 atomics, the sums then cast once to the image's dtype); on a CPU
+the hand-written gradient kernel of the same source
+(``warp_sample_grad``: the forward's positions, weights and drop decisions;
+a thread sums a run of one pixel's planes on one source cell in registers
+and adds each corner's sum with one float32 vector atomic, the sums then
+cast once to the image's dtype); on a CPU
 tensor the gradient is autograd's through ``warp_sample_plain``. No
 gradient flows to the matrix or the depths (the JAX package's positions
 depend only on inputs and stopped depths): the call raises if either
@@ -47,6 +48,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 # one row, over SWEEP_ROWS_PER_BLOCK rows (1, 2, 4 or 8), and a warp walks
 # 1, 2 or 4 consecutive depth planes of its samples (``sweep_tiling``).
 SWEEP_ROWS_PER_BLOCK = 8
+# The gradient kernel's block: 256 (pixel, channel vector) items of 4
+# channels (fewer where grad_out's alignment asks), each walking
+# consecutive planes (``grad_tiling``, which splits D into groups of no
+# fewer than GRAD_MIN_PLANES).
+GRAD_THREADS = 256
+GRAD_MAX_VEC = 4
+GRAD_MIN_PLANES = 4
 # CUDA's grid limit on the kernel's plane axis, and the image size its
 # 32-bit offsets and 16-bit cell coordinates take.
 MAX_PLANES = 65535
@@ -170,6 +178,27 @@ def sweep_tiling(B: int, D: int, H: int, W: int, lanes: int,
     return rows, 1
 
 
+def grad_tiling(B: int, D: int, H: int, W: int, lanes: int,
+                sms: int) -> int:
+    """Planes a thread of the gradient kernel walks, for ``lanes`` = C / vec
+    channel vectors a pixel on a card of ``sms`` SMs: all D where the grid
+    keeps 4 blocks an SM (a run can then sum every plane of a pixel that
+    lands in one source cell), else D halved until it does or reaches
+    GRAD_MIN_PLANES."""
+    blocks = B * -(-H * W * lanes // GRAD_THREADS)
+    planes = D
+    while planes > GRAD_MIN_PLANES and blocks * -(-D // planes) < 4 * sms:
+        planes = max(-(-planes // 2), GRAD_MIN_PLANES)
+    return planes
+
+
+def _grad_vec(C: int, elem: int, ptr: int) -> int:
+    """Channels a lane of the gradient kernel sums: 4 (one float4 of
+    sums, 16 bytes of f32 or 8 of bf16 grad_out), fewer where C or
+    grad_out's alignment asks."""
+    return min(_vec(C, elem, ptr), GRAD_MAX_VEC)
+
+
 def _too_large(H: int, W: int, C: int) -> bool:
     return max(H, W) > MAX_SIDE or (H + 1) * (W + 1) * C >= MAX_VALUES
 
@@ -188,7 +217,7 @@ def _plan(B: int, D: int, H: int, W: int, C: int, elem: int, misalign: int,
 # floats, 80 bytes each.
 _SWEEP_ARGS = struct.Struct("<4Q2q7if")
 _SAMPLE_ARGS = struct.Struct("<5Q2q6i")
-_GRAD_ARGS = struct.Struct("<4Q2q7if")
+_GRAD_ARGS = struct.Struct("<4Q2q6ifi")
 
 
 def _check(name: str, img, floats, keep=None):
@@ -305,17 +334,27 @@ def warp_sample_grad(grad_out, ref_to_src, depth,
     if B * D > MAX_PLANES or _too_large(H, W, C):
         raise ValueError(f"warp_sample_grad: {B} x {D} planes of {H} x {W} "
                          f"x {C} exceed the kernel's grid or offsets")
+    vec = _grad_vec(C, grad_out.element_size(), grad_out.data_ptr())
+    planes = grad_tiling(B, D, H, W, C // vec,
+                         _sm_count(grad_out.get_device()))
+    return _grad_call(grad_out, ref_to_src, depth, min_depth_thres, vec,
+                      planes)
+
+
+def _grad_call(grad_out, ref_to_src, depth, min_depth_thres: float,
+               vec: int, planes: int):
+    """The gradient kernel's launch into zeroed float32 sums, with ``vec``
+    channels a lane and ``planes`` planes a thread (the inputs checked by
+    warp_sample_grad; experiments time other ``planes`` through it)."""
+    B, D, H, W, C = grad_out.shape
     acc = torch.zeros((B, H, W, C), dtype=torch.float32,
                       device=grad_out.device)
     if grad_out.numel() == 0:
         return acc
-    vec = _vec(C, grad_out.element_size(), grad_out.data_ptr())
-    rows, planes = sweep_tiling(B, D, H, W, C // vec,
-                                _sm_count(grad_out.get_device()))
     launch("tandem_warp_sample_grad", grad_out.device, _GRAD_ARGS.pack(
         grad_out.data_ptr(), ref_to_src.data_ptr(), depth.data_ptr(),
-        acc.data_ptr(), B, D, H, W, C, vec, rows, planes,
-        int(grad_out.dtype == torch.bfloat16), min_depth_thres))
+        acc.data_ptr(), B, D, H, W, C, vec, planes,
+        int(grad_out.dtype == torch.bfloat16), min_depth_thres, 0))
     warp_sample_grad.launches += 1
     return acc
 

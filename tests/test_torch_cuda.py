@@ -836,6 +836,126 @@ def test_warp_sample_grad_kernel_matches_plain(dev, dtype, stage, B):
     _assert_grad_matches_plain(acc, gout, mat, depth)
 
 
+def _run_case(dev, stage: str, dtype, kind: str, D: int = None,
+              C: int = None, hw: tuple = None, seed: int = 1):
+    """A B = 2 plane sweep (an abl04 stage's D, H, W, C unless given) whose
+    source cells follow ``kind`` along each pixel's planes: "one cell"
+    (sorted depths within 1 mm of 2 m, the camera moved ~1 cm: every plane
+    of a pixel in one cell), "alternating" (depths 1 m and 3 m in turn, the
+    camera moved ~5 cm: cells A, B, A, ...), "broken" (as "one cell", but
+    plane D // 3 behind the source camera, dropped, and plane 2D // 3 at
+    1 mm, whose cell lies far outside the image). Item 1 moves the other
+    way and down. The pattern is checked on the card's positions. Returns
+    (grad_out, matrices, depths)."""
+    from tandem_tpu_torch.ops.bilinear_sample import sweep_positions
+    D0, Hs, Ws, C0 = ABL04_STAGES[stage]
+    D, C = D or D0, C or C0
+    Hs, Ws = hw or (Hs, Ws)
+    rng = np.random.RandomState(seed)
+    f = 0.9 * Ws
+    K = np.array([[f, 0, Ws / 2], [0, f, Hs / 2], [0, 0, 1]], np.float64)
+    far = kind == "alternating"
+    moves = [[0.05, 0.0, 0.0], [-0.04, 0.03, 0.0]] if far else \
+        [[0.01, 0.0, 0.0], [-0.006, 0.008, 0.0]]
+    mat = np.stack([np.concatenate([np.eye(3), K @ np.array(t)[:, None]], 1)
+                    for t in moves]).astype(np.float32)
+    if far:
+        depth = np.where(np.arange(D) % 2 == 0, 1.0, 3.0)[None, :, None, None] \
+            * (1 + 1e-4 * rng.rand(2, D, Hs, Ws))
+    else:
+        depth = np.sort(2.0 + 1e-3 * rng.rand(2, D, Hs, Ws), axis=1)
+    if kind == "broken":
+        depth[:, D // 3] = -1.0
+        depth[:, 2 * D // 3] = 1e-3
+    mat_t = torch.from_numpy(mat).to(dev)
+    depth_t = torch.from_numpy(depth.astype(np.float32)).to(dev)
+    px, py, z = sweep_positions(mat_t, depth_t, Hs, Ws)
+    live = ~(z < 0.001) & (px > -1) & (px < Ws) & (py > -1) & (py < Hs)
+    cell = py.floor() * (Ws + 2) + px.floor()
+    if far:
+        assert float(((cell[:, 0] == cell[:, 2]) & (cell[:, 0] != cell[:, 1])
+                      ).float().mean()) > 0.99
+    else:
+        keep = [k for k in range(D) if kind != "broken"
+                or k not in (D // 3, 2 * D // 3)]
+        assert float((cell[:, keep] == cell[:, :1]).all(1).float().mean()
+                     ) > 0.99
+        assert kind != "broken" or not live[:, [D // 3, 2 * D // 3]].any()
+    gout = torch.from_numpy(rng.randn(2, D, Hs, Ws, C).astype(np.float32))
+    return gout.to(dev, dtype), mat_t, depth_t
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage", ["stage1", "stage3"])
+@pytest.mark.parametrize("kind", ["one cell", "alternating", "broken"])
+def test_warp_sample_grad_runs_of_planes(dev, kind, stage, dtype):
+    """The gradient kernel's register runs: every plane of a pixel in one
+    source cell (one flush a run), cells alternating A, B, A (a flush every
+    plane), a run broken by a dropped sample and by a cell outside the
+    image; each item within 1e-4 of its largest |gradient| of the plain
+    gradient in float64, one launch a call."""
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample_grad
+    gout, mat, depth = _run_case(dev, stage, dtype, kind)
+    before = warp_sample_grad.launches
+    acc = warp_sample_grad(gout, mat, depth)
+    torch.cuda.synchronize()
+    assert warp_sample_grad.launches == before + 1
+    _assert_grad_matches_plain(acc, gout, mat, depth)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage,planes", [("stage1", 20), ("stage3", 3)])
+def test_warp_sample_grad_ragged_plane_groups(dev, stage, planes, dtype):
+    """D not a multiple of the planes a thread walks: 48 = 20 + 20 + 8
+    (rounds of 8 planes cut at 20) and 4 = 3 + 1, through the launch with
+    those planes; and through the wrapper on a 24x32 sweep of 45 planes,
+    where grad_tiling splits D itself."""
+    from tandem_tpu_torch.ops import bilinear_sample as bs
+    gout, mat, depth = _run_case(dev, stage, dtype, "one cell")
+    acc = bs._grad_call(gout, mat, depth, 0.001, 4, planes)
+    _assert_grad_matches_plain(acc, gout, mat, depth)
+    gout, mat, depth = _run_case(dev, "stage1", dtype, "alternating", D=45,
+                                 hw=(24, 32))
+    planes = bs.grad_tiling(2, 45, 24, 32, 8, bs._sm_count(dev.index or 0))
+    assert 45 % planes != 0
+    acc = bs.warp_sample_grad(gout, mat, depth)
+    torch.cuda.synchronize()
+    _assert_grad_matches_plain(acc, gout, mat, depth)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage", ["stage1", "stage3"])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_warp_sample_grad_misaligned(dev, offset, stage, dtype):
+    """grad_out starting 1 or 2 elements past an aligned address: the
+    lanes sum 1 channel (scalar atomics) or 2 (float2 atomics, f32 8-byte
+    and bf16 4-byte aligned), within 1e-4 as the aligned case."""
+    from tandem_tpu_torch.ops import bilinear_sample as bs
+    gout, mat, depth = _run_case(dev, stage, dtype, "one cell")
+    buf = torch.empty(gout.numel() + offset, device=dev, dtype=dtype)
+    moved = buf[offset:].view(gout.shape)
+    moved.copy_(gout)
+    assert bs._grad_vec(gout.shape[-1], moved.element_size(),
+                        moved.data_ptr()) == offset
+    acc = bs.warp_sample_grad(moved, mat, depth)
+    torch.cuda.synchronize()
+    _assert_grad_matches_plain(acc, moved, mat, depth)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_warp_sample_grad_lanes_not_dividing_a_warp(dev, dtype):
+    """C = 12 (3 channel vectors a pixel, which do not divide a warp): each
+    lane computes its own pixel's cells; sorted narrow depths and a sweep
+    with dropped and outside planes, within 1e-4."""
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample_grad
+    for kind in ("one cell", "broken"):
+        gout, mat, depth = _run_case(dev, "stage1", dtype, kind, D=12, C=12,
+                                     hw=(30, 40))
+        acc = warp_sample_grad(gout, mat, depth)
+        torch.cuda.synchronize()
+        _assert_grad_matches_plain(acc, gout, mat, depth)
+
+
 def test_warp_sample_autograd_uses_the_kernels(dev):
     """On a CUDA tensor that requires grad, warp_sample's backward is the
     kernel (one launch each way, B = 2): the float32 gradient matches the

@@ -300,6 +300,47 @@ def test_sample_gradient_matches_jax_autodiff(stage):
     assert np.abs(want).max() > 1.0 and (want == 0).any()
 
 
+def test_sample_gradient_in_one_cell_matches_jax_autodiff():
+    """The regime the card's gradient kernel sums in registers: sorted
+    depths within 1 mm of 2 m and a source camera moved ~1 cm, so all 16
+    planes of a pixel land in one source cell. warp_sample_grad's plain
+    version equals jax.grad of the JAX package's plane_sweep_warp with
+    respect to the source features (24x32, C = 8, B = 2) within 5e-5 of
+    the largest |gradient|, the tolerance of
+    test_sample_gradient_matches_jax_autodiff and for its reason."""
+    from tandem_tpu_torch.ops.bilinear_sample import sweep_positions
+    D, Hs, Ws, C = 16, 24, 32, 8
+    rng = np.random.RandomState(12)
+    feat = rng.randn(2, Hs, Ws, C).astype(np.float32)
+    K = np.array([[Ws * 0.9, 0, Ws / 2], [0, Ws * 0.9, Hs / 2], [0, 0, 1]],
+                 np.float32)
+    Ks = np.stack([K, K])
+    ref = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    src = ref.copy()
+    src[:, :3, 3] = [[0.01, 0.004, 0.0], [-0.008, -0.006, 0.0]]
+    depth = np.sort(2.0 + 1e-3 * rng.rand(2, D, Hs, Ws), axis=1).astype(
+        np.float32)
+    gout = rng.randn(2, D, Hs, Ws, C).astype(np.float32)
+
+    def jf(f):
+        out, _ = j_warp(f, jnp.asarray(depth), src_K=jnp.asarray(Ks),
+                        src_cam_to_world=jnp.asarray(src),
+                        ref_K=jnp.asarray(Ks),
+                        ref_cam_to_world=jnp.asarray(ref))
+        return jnp.sum(out * jnp.asarray(gout))
+    want = np.asarray(jax.jit(jax.grad(jf))(jnp.asarray(feat)))
+
+    mat = ref_to_src_matrix(torch.tensor(Ks), torch.tensor(src),
+                            torch.tensor(Ks), torch.tensor(ref))
+    px, py, _ = sweep_positions(mat, torch.tensor(depth), Hs, Ws)
+    cell = py.floor() * (Ws + 2) + px.floor()
+    assert bool((cell == cell[:, :1]).all())
+    got = warp_sample_grad(torch.tensor(gout), mat, torch.tensor(depth))
+    top = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5 * top)
+    assert top > 1.0
+
+
 def test_sample_gradient_contract():
     """warp_sample raises when the matrix or the depths want a gradient;
     warp_sample_grad returns float32 sums for either dtype of grad_out, and
