@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: the keyframe map path in
 float32 and in bfloat16 (the JAX package's deployed dtype), the dense
-coarse tracker tracking against the TSDF model, the SLAM loop, and the
-training half (tandem_train, tandem_eval).
+coarse tracker tracking against the TSDF model, the SLAM loop, the
+sensor-depth paths (RGB-D tracking with dvo's dense tracker, the TSDF
+raycast through dr_debug_example), and the training half (tandem_train,
+tandem_eval).
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
@@ -85,6 +87,11 @@ Phases, each printing its numbers before the last line:
   9. culled   on the f32 slice's map and on the wall scene at 640x480,
               integrate_culled and both culled renders equal the full walk
               (torch.equal) at turned cameras; counts and both times;
+     sensor 640x480  (times only) dvo's dense_match on level 1 between
+              golden view 0 and views 1-6, each view's depth the f32
+              slice's render at its pose; raycast at the 7 golden poses on
+              the slice's map beside render_depth_splat and the march
+              alone; CUDA events, bounds, device events a call;
  10. golden and slice again in bf16: worst MAE < 1e-1 (10 x the bar, the
               JAX runtime's bf16 boot check), the same render contract;
  11. wall     the TSDF wall contract at 640x480;
@@ -109,6 +116,23 @@ Phases, each printing its numbers before the last line:
               per stage, host reads a frame, the calls of the torch-op hot
               spots K7, K8, K11 and _corner_grids a frame or keyframe and
               their CUDA-event ms a call with a bound;
+     rgbd     FullSystem(rgbd=True) through the API on the fixture's
+              frames with their sensor depths (dvo's dense tracker on
+              level 1, K6's calc_res_eval, the Student-t fallback and retry
+              ladder), VO only on 64 frames and with the trained unit
+              (bf16) on 48: the VO run tracks >= SLAM_MIN_FRAMES frames
+              with an SE(3) ATE without scale within RGBD_ATE_BOUND and
+              keeps dvo's pose on RGBD_DVO_POSES frames, give or take
+              RGBD_DVO_POSES_SLACK; both runs take the dvo branch and
+              launch K6; the unit run calls the backend and its result.txt
+              equals the VO run's first 48 lines; dvo, fallback and kept
+              frames, retry ladder firings, FPS, Timer split, host reads a
+              frame (VO run), dense_match, calc_res_eval and Student-t LM
+              ms with bounds;
+     dr_debug the port's dr_debug_example CLI over the fixture's first 20
+              frames with GT poses: per frame allocate, integrate and
+              raycast ms, and the render against the frame's GT depth (hit
+              share > 0.8, median |error| < 2 voxels); mesh vertices;
  15. train    the port's tandem_train CLI on replica_traj (abl04 config,
               640x480, B = 2, f32): one epoch (7 steps) with its
               checkpoint, a resume from it with --pretrained (to step 14);
@@ -126,9 +150,10 @@ Phases, each printing its numbers before the last line:
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
-the slices, the three tracking paths, the slam runs, the training runs and
-the evals) and read just after it. The last line
-of stdout is the JSON result; any failed phase exits non-zero without it.
+the slices, the three tracking paths, the slam runs, the RGB-D runs, the
+dr_debug run, the training runs and the evals) and read just after it.
+The last line of stdout is the JSON result; any failed phase exits
+non-zero without it.
 The line before it lists every kernel with its launches on the driven
 paths, its error and time against its plain version, its bound (the
 larger of its bytes over HBM_BYTES_PER_S and its operations over
@@ -206,6 +231,28 @@ LM_TIE = 1e-5
 # against the plain version on the card: 0.19 px at B = 5).
 LM_POSE_PX = 0.5
 LM_AFF_TOL = 0.05
+# The RGB-D path (phase rgbd): SE(3) ATE without scale on replica_traj
+# within 1.5 x the JAX package's on the CPU over the same 64 frames (the
+# MVS map's 1.5 x convention): 1.9844264140336252 mm, printed by
+# tests/test_torch_rgbd.py::test_replica_traj_rgbd_ate (the port on the
+# CPU: 1.859570720845736 mm).
+RGBD_ATE_BOUND = 1.5 * 1.9844264140336252e-3
+# The VO run's frames whose final pose is dvo's (neither the fallback's nor
+# the retry ladder's): the JAX package's count on the CPU over the same 64
+# frames, printed by the same test (frames 1-7; the port on the CPU: 7).
+# After the ladder's first firing every frame retries (PERF.md), so a
+# gate decision that flips on the card moves the count by one frame.
+RGBD_DVO_POSES = 7
+RGBD_DVO_POSES_SLACK = 1
+# dvo's dense_match, per pixel and iteration: the warp and projection ~30,
+# the six-plane bilinear sample ~50, the residual, gradients and gates
+# ~55, the t weights, scale and log-likelihood ~35, the 2x6 Jacobian ~60
+# and its 2x2-weighted normal equations (J^T W J over 6x6, J^T W r) ~220.
+DVO_OPS = 450
+# raycast, per ray: the direction ~10, the seed's 4 fill rounds 36, five
+# march steps of ~50 (position, voxel and page-table index, step, hit
+# test) and the colour's nine lookups (~34 each) and trilinear blend ~100.
+RAYCAST_OPS = 700
 # Bounds: NVIDIA's H100 SXM data sheet.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12        # f32 outside the tensor cores (an FMA is two)
@@ -217,6 +264,9 @@ F32_CMP_PER_S = 64 * 132 * 1.98e9
 # of three planes ~30, residual and Huber ~10, Jacobian ~20, the 44 sums of
 # H and g ~100 operations.
 TRACK_OPS = 180
+# The Student-t weights of the RGB-D LM (coarse_tracker._tdist_weights) per
+# residual: the trimmed-mean start ~12 and ten IRLS rounds of ~6.
+TDIST_OPS = 72
 # The edge filter's work per pixel, in compare/min/max slots. The centre's
 # difference is always +0, so the answer is the 14th smallest of the other
 # 24; the fewest min/max of a known selection network for that rank:
@@ -1975,12 +2025,6 @@ def phase_track_640(dev, backend, pack, profile: Path = None) -> dict:
     return counts
 
 
-def _copy_volume(vol):
-    import dataclasses
-    return dataclasses.replace(vol, **{f: getattr(vol, f).clone() for f in (
-        "page_table", "block_coords", "tsdf", "weight", "color")})
-
-
 def _turned(pose: np.ndarray, deg: float) -> np.ndarray:
     a = np.deg2rad(deg)
     R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
@@ -1995,7 +2039,8 @@ def _culled_cases(dev, name, cfg, vol, depth, rgb, K, pose: np.ndarray):
     integrate, and both culled renders equal the full walk (torch.equal)."""
     import torch
 
-    from tandem_tpu_torch.mapping.tsdf import (integrate, integrate_culled,
+    from tandem_tpu_torch.mapping.tsdf import (copy_volume, integrate,
+                                               integrate_culled,
                                                render_depth_splat,
                                                surface_axis_slots,
                                                visible_slots)
@@ -2005,8 +2050,8 @@ def _culled_cases(dev, name, cfg, vol, depth, rgb, K, pose: np.ndarray):
         vis_ms, (slots, n_vis) = _median_ms(
             lambda: visible_slots(cfg, vol, K, p, H, W), reps=3)
         n_vis = int(n_vis)
-        full = integrate(cfg, _copy_volume(vol), depth, rgb, K, p)
-        cull = integrate_culled(cfg, _copy_volume(vol), depth, rgb, K, p,
+        full = integrate(cfg, copy_volume(vol), depth, rgb, K, p)
+        cull = integrate_culled(cfg, copy_volume(vol), depth, rgb, K, p,
                                 slots, n_vis)
         for f in ("tsdf", "weight", "color"):
             if not torch.equal(getattr(full, f), getattr(cull, f)):
@@ -2310,6 +2355,452 @@ def phase_slam(dev) -> dict:
     return {"slam_vo": runs["vo"]["counts"],
             "slam_full": runs["full"]["counts"],
             "slam_full_again": runs["full_again"]["counts"]}
+
+
+def _profiled_events(fn):
+    """One call of ``fn`` under torch.profiler: (device events, device busy
+    ms, host span ms), or None when three sessions saw no device event
+    (the profiler late in a long process)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with prof(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            span_ms = (time.perf_counter() - t0) * 1e3
+        device = [e for e in p.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if device:
+            busy = sum(e.self_device_time_total for e in device) / 1e3
+            return sum(e.count for e in device), busy, span_ms
+    return None
+
+
+def _events_line(ev) -> str:
+    if ev is None:
+        return "device events not measured (the profiler saw none)"
+    n, busy, span = ev
+    return (f"{n} device events a call, device busy {busy:.3f} ms of a "
+            f"{span:.3f} ms host span (profiler on), idle "
+            f"{100 * (1 - busy / span):.1f}%")
+
+
+def _dvo_bound(H: int, W: int, iterations: int) -> dict:
+    """dense_match on one level of H x W: each input read once (the
+    reference's I, Z, dI/dx, dI/dy and the current frame's six planes, 40
+    B a pixel) and DVO_OPS a pixel an iteration."""
+    return _bound(H * W * 40, H * W * iterations * DVO_OPS)
+
+
+def _raycast_bound(n_allocated: int, H: int, W: int) -> dict:
+    """raycast: the splat seed reads each allocated block's sdf and weight
+    once (8 B a voxel); each ray reads, a march step, a page-table entry,
+    an sdf and a weight (12 B) and, for its colour, nine page-table
+    entries, weights and colours (20 B each), and writes its depth and
+    colour (16 B); RAYCAST_OPS a ray."""
+    rays = H * W
+    return _bound(n_allocated * 512 * 8 + rays * (5 * 12 + 9 * 20 + 16),
+                  rays * RAYCAST_OPS)
+
+
+def phase_sensor_640(dev, backend, pack):
+    """The sensor-depth hot spots at the deployed size, on the golden
+    views and the f32 slice's map (times only: the golden views are not
+    photometrically consistent with their poses):
+    - dvo's dense_match on level 1 (320x240, max 5 iterations) between
+      view 0 and each of views 1-6, each view's depth the slice's splat
+      render at its pose, from the identity;
+    - raycast at each golden pose, beside render_depth_splat (full walk)
+      on the same volume and pose, and the march alone."""
+    import torch
+
+    from tandem_tpu_torch.mapping.tsdf import (_raycast_march, raycast,
+                                               render_depth_splat, splat_zbuf)
+    from tandem_tpu_torch.tracking.dvo import build_rgbd_pyramid, dense_match
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    rgb = pack["image"][0]                            # (V, 3, H, W) RGB
+    grays = [torch.from_numpy(_gray(np.ascontiguousarray(
+        v.transpose(1, 2, 0)[..., ::-1]))).to(dev) for v in rgb]
+    H, W = grays[0].shape
+    K = torch.from_numpy(pack["K3"][0]).to(dev)
+    fx, fy, cx, cy = (float(pack["K3"][0][i]) for i in ((0, 0), (1, 1),
+                                                         (0, 2), (1, 2)))
+    poses = [torch.from_numpy(np.asarray(c, np.float32)).to(dev)
+             for c in pack["cam_to_world"][0]]
+    cfg, vol = backend.cfg, backend.volume
+    depths = [render_depth_splat(cfg, vol, K, p, H, W) for p in poses]
+    pyrs = [build_rgbd_pyramid(g, d, fx, fy, cx, cy, num_levels=2)
+            for g, d in zip(grays, depths)]
+    eye = torch.eye(4, device=dev)
+    dvo_ms, ns = [], []
+    for v in range(1, len(pyrs)):
+        def match():
+            return dense_match(pyrs[0], pyrs[v], eye, on_level=1)
+        out = match()
+        if not torch.isfinite(out["T"]).all():
+            raise AssertionError(f"sensor 640x480: dense_match view {v} "
+                                 "pose not finite")
+        ns.append(int(out["n"]))
+        dvo_ms.append(cuda_ms(match, iters=10))
+    ev = _profiled_events(lambda: dense_match(pyrs[0], pyrs[1], eye,
+                                              on_level=1))
+    b = _dvo_bound(H // 2, W // 2, 5)
+    med = float(np.median(dvo_ms))
+    log(f"[sensor 640x480] {card_label_once()} dense_match on level 1 "
+        f"({W // 2}x{H // 2}, 5 iterations), views 1-6 against view 0: ms "
+        f"{[round(x, 4) for x in dvo_ms]} median {med:.4f} ms (CUDA "
+        f"events); n {ns}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
+        f"share {100 * b['bound_ms'] / med:.3f}%; {_events_line(ev)}")
+
+    ray_ms, splat_ms, march_ms, hits = [], [], [], []
+    for v, p in enumerate(poses):
+        d, _ = raycast(cfg, vol, (K, p), H, W)
+        if not torch.isfinite(d).all():
+            raise AssertionError(f"sensor 640x480: raycast view {v} not "
+                                 "finite")
+        both = (d > 0) & (depths[v] > 0)
+        hits.append((float((d > 0).float().mean()),
+                     float((d[both] - depths[v][both]).abs().median())
+                     / cfg.voxel_size if both.any() else float("nan")))
+        ray_ms.append(cuda_ms(lambda: raycast(cfg, vol, (K, p), H, W),
+                              iters=5))
+        splat_ms.append(cuda_ms(lambda: render_depth_splat(cfg, vol, K, p,
+                                                           H, W), iters=5))
+        zbuf = splat_zbuf(cfg, vol, K, p, H, W)
+        march_ms.append(cuda_ms(lambda: _raycast_march(cfg, vol, K, p, zbuf,
+                                                       H, W), iters=5))
+    ev = _profiled_events(lambda: raycast(cfg, vol, (K, poses[0]), H, W))
+    b = _raycast_bound(vol.n_allocated, H, W)
+    med = float(np.median(ray_ms))
+    log(f"[sensor 640x480] raycast on the f32 slice's map (n_allocated "
+        f"{vol.n_allocated}) at the 7 golden poses: ms "
+        f"{[round(x, 4) for x in ray_ms]} median {med:.4f} (the march "
+        f"alone {float(np.median(march_ms)):.4f}); render_depth_splat "
+        f"on the same volume and poses median "
+        f"{float(np.median(splat_ms)):.4f} ms (CUDA events); hit share "
+        f"and median |raycast - splat| in voxels "
+        f"{[(round(h, 4), round(e, 3)) for h, e in hits]}; bound "
+        f"{b['bound_ms']:.5f} ms ({b['bound_by']}), share "
+        f"{100 * b['bound_ms'] / med:.3f}%; {_events_line(ev)}")
+
+
+def _rgbd_run(dev, out_dir: Path, unit: bool, frames: int = 64,
+              count_syncs: bool = False) -> dict:
+    """FullSystem(rgbd=True) through the API on the trajectory fixture's
+    frames and sensor depths (depths/*.png, scale 0.0002), with the dataset
+    preset as tandem_dataset builds it (``unit``: the trained abl04 unit,
+    bf16, in the backend): its SE(3) ATE without scale, the dvo and
+    fallback frames, FPS and the Timer split, the launches of each kernel
+    and, with ``count_syncs``, the host reads."""
+    import hashlib
+    import warnings
+
+    import torch
+
+    from tandem_tpu_torch.cli.golden import load_model_config
+    from tandem_tpu_torch.data.reader import RGBDReader
+    from tandem_tpu_torch.eval.ate import (associate, evaluate_ate,
+                                           load_tum_trajectory, tum_to_xyz)
+    from tandem_tpu_torch.mapping.tsdf import TsdfConfig
+    from tandem_tpu_torch.models.convert import load_variables
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.pipeline.backend import TandemBackend
+    from tandem_tpu_torch.pipeline.full_system import (
+        FullSystem, make_full_system_options)
+    from tandem_tpu_torch.pipeline.mvsnet_runner import MvsnetRunner
+    from tandem_tpu_torch.settings import parse_arguments, preset
+    from tandem_tpu_torch.utils.timer import Timer
+    s = parse_arguments(["rgbd=1"], base=preset("dataset"))
+    fx, fy, cx, cy, W, H = 200.0, 200.0, 127.5, 95.5, 256, 192
+    K_mat = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
+    timer = Timer(enabled=True)
+    backend = None
+    if unit:
+        model = CvaMVSNet(**load_model_config(str(UNIT)),
+                          dtype=torch.bfloat16)
+        runner = MvsnetRunner(model, load_variables(
+            str(UNIT / "model_variables.pkl")), H, W,
+            view_num=s.dr_mvsnet_view_num, device=dev)
+        backend = TandemBackend(runner, TsdfConfig(), K_mat, H, W,
+                                mesh_extraction_freq=s.mesh_extraction_freq,
+                                timer=timer)
+    fs = FullSystem(fx, fy, cx, cy, H, W, options=make_full_system_options(s),
+                    backend=backend, timer=timer, device=dev)
+    reader = RGBDReader(str(FIXTURE / "images"),
+                        depth_path=str(FIXTURE / "depths"),
+                        depth_scale=2e-4)
+    torch.cuda.synchronize()
+    reset_counts()
+    calls0 = edge_calls()
+
+    def loop():
+        for i in range(frames):
+            tid = timer.start_timing("read_frame")
+            gray, ts, _ = reader.get_image(i)
+            bgr, depth = reader.get_image_bgr(i), reader.get_depth(i)
+            timer.end_timing("read_frame", tid)
+            fs.add_active_frame(gray, i, ts, bgr=bgr, depth=depth)
+            if fs.is_lost:
+                raise AssertionError(f"rgbd: lost at frame {i}")
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    syncs = None
+    if count_syncs:
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            loop()
+        torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in seen)
+    else:
+        loop()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    fs.write_results(str(out_dir))
+    gt = load_tum_trajectory(str(FIXTURE / "gt_tum.txt"))
+    est = load_tum_trajectory(str(out_dir / "result.txt"))
+    pairs = associate(gt, est)
+    ate = evaluate_ate(tum_to_xyz(gt, [a for a, _ in pairs]),
+                       tum_to_xyz(est, [b for _, b in pairs]),
+                       with_scale=False)
+    lines = (out_dir / "result.txt").read_bytes().splitlines(True)
+    return {"fs": fs, "backend": backend, "timer": timer,
+            "seconds": seconds, "counts": counts, "syncs": syncs,
+            "edge_calls": edge_calls() - calls0, "pairs": len(pairs),
+            "ate": ate, "frames": frames, "reader": reader,
+            "digest": hashlib.sha256(b"".join(lines)).hexdigest(),
+            "digest_48": hashlib.sha256(b"".join(lines[:48])).hexdigest()}
+
+
+def _host_reads(fn) -> int:
+    """The synchronizing CUDA calls of one call of ``fn``."""
+    import warnings
+
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _rgbd_op_times(dev, r) -> dict:
+    """CUDA-event ms a call on the run's final state (the last keyframe's
+    dvo and tracking references against the last frame) of dense_match
+    (level 1), calc_res_eval, the Student-t track_frame (dvo's fallback)
+    and the retry ladder's first call (track_frame_multi, 5 candidates),
+    and of the Student-t LM on level 0 (``_lm_level``, lm_level_plain with
+    the t weights) at B = 1 and 5 with its steps, host reads, device events
+    and bound."""
+    import torch
+
+    from tandem_tpu_torch.tracking.coarse_tracker import (
+        MAX_ITERS, NUM_LEVELS, _lm_level, _planes, build_pyramid,
+        calc_res_eval, track_frame, track_frame_multi)
+    from tandem_tpu_torch.tracking.dvo import build_rgbd_pyramid, dense_match
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    fs, reader = r["fs"], r["reader"]
+    ref = fs.tracker_ref
+    i = r["frames"] - 1
+    img = torch.from_numpy(reader.get_image(i)[0].astype(np.float32)).to(dev)
+    depth = torch.from_numpy(reader.get_depth(i)).to(dev)
+    cur = build_rgbd_pyramid(img, depth, *fs.K, num_levels=2)
+    T = torch.from_numpy(np.linalg.inv(fs.last_c2w) @ fs.ref_kf.c2w).to(
+        dev, torch.float32)
+    aff = torch.tensor([1.0, 0.0], device=dev)
+    H, W = img.shape
+    T5 = T[None].expand(5, 4, 4).contiguous()
+    out = {"dense_match": {"ms": cuda_ms(lambda: dense_match(
+        fs._dvo_ref, cur, T, on_level=1), iters=20),
+        **_dvo_bound(H // 2, W // 2, 5)},
+        "calc_res_eval": {"ms": cuda_ms(lambda: calc_res_eval(
+            ref, img, T, aff), iters=20)},
+        "track_frame_tdist": {"ms": cuda_ms(lambda: track_frame(
+            ref, img, T, aff, True), iters=3, warmup=1)},
+        "track_frame_multi_tdist_B5": {"ms": cuda_ms(
+            lambda: track_frame_multi(ref, img, T5, aff, True), iters=3,
+            warmup=1)}}
+    pts = ref.level(0)
+    planes = _planes(build_pyramid(img, NUM_LEVELS)[0])
+    for B in (1, 5):
+        Tb = T[None].expand(B, 4, 4).contiguous()
+        affb = aff[None].expand(B, 2).contiguous()
+
+        def level():
+            return _lm_level(Tb, affb, pts, planes, ref.K[0], MAX_ITERS[0],
+                             tdist=True)
+        res = level()
+        steps = int(res[4])
+        ms = cuda_ms(level, iters=5)
+        ev = _profiled_events(level)
+        b = _bound(_nbytes(Tb, affb, *pts, *planes, *res[:4]),
+                   (1 + steps) * (TRACK_OPS + TDIST_OPS)
+                   * int(pts[4].sum()) * B)
+        out[f"tdist_lm_level0_B{B}"] = {
+            "ms": ms, "steps": steps, "host_reads": _host_reads(level),
+            "device_events": None if ev is None else ev[0],
+            "device_busy_ms": None if ev is None else ev[1],
+            **b, "share": b["bound_ms"] / ms, "library_ms": None}
+    return out
+
+
+def phase_rgbd(dev) -> dict:
+    """FullSystem(rgbd=True) through the API on tests/fixtures/replica_traj
+    with its sensor depths: VO only on the 64 frames, then with the trained
+    abl04 unit (bf16) on the first 48 (a frame costs ~1 s on this path,
+    most of it the Student-t retry ladder, see PERF.md; the backend's first
+    call comes at frame 39, the seventh keyframe). The VO run must track
+    >= SLAM_MIN_FRAMES frames with an SE(3) ATE (no scale) within
+    RGBD_ATE_BOUND and keep dvo's pose on RGBD_DVO_POSES frames give or
+    take RGBD_DVO_POSES_SLACK; both runs must take the dvo branch on at
+    least one frame and launch K6 (calc_res_eval); the unit run must call
+    the backend, launch K1 and bilinear_sample, and its result.txt must
+    equal the VO run's first 48 lines (sha256): in RGB-D mode the sensor
+    depth, not the unit's, feeds the tracker, so the two runs compute the
+    same poses."""
+    import shutil
+    import tempfile
+
+    import torch
+    work = Path(tempfile.mkdtemp(prefix="rgbd_"))
+    runs = {}
+    try:
+        for tag, unit, frames, syncs in (("vo", False, 64, True),
+                                         ("full", True, 48, False)):
+            (work / tag).mkdir()
+            runs[tag] = r = _rgbd_run(dev, work / tag, unit, frames=frames,
+                                      count_syncs=syncs)
+            fs, nf = r["fs"], r["frames"]
+            dvo = fs.n_dvo_frames - fs.n_dvo_fallbacks
+            split = {k: (len(v), round(float(np.mean(v)), 3))
+                     for k, v in sorted(r["timer"].intervals.items())}
+            log(f"[rgbd {tag}] {card_label_once()} frames {nf}, "
+                f"{r['seconds']:.3f} s, FPS {nf / r['seconds']:.3f}, "
+                f"keyframes {len(fs.keyframes)}; dvo branch {dvo} frames, "
+                f"fallback to track_frame {fs.n_dvo_fallbacks}, retry "
+                f"ladder on {fs.n_retracks}, dvo's pose kept on "
+                f"{fs.n_dvo_poses}; ATE (SE(3), no scale) "
+                f"{r['ate']['rmse'] * 1e3:.3f} mm over {r['pairs']}/{nf} "
+                f"frames (bound {RGBD_ATE_BOUND * 1e3:.3f} mm at 64); "
+                f"result.txt sha256 {r['digest']}, its first 48 lines "
+                f"{r['digest_48']}")
+            log(f"[rgbd {tag}] Timer (count, mean ms, host clock): {split}; "
+                f"kernel launches {r['counts']}"
+                + (f"; host reads {r['syncs']} ({r['syncs'] / nf:.2f} a "
+                   f"frame)" if r["syncs"] is not None else ""))
+            if dvo < 1:
+                raise AssertionError(f"rgbd {tag}: no frame took the dvo "
+                                     "branch")
+            if nf == 64:
+                if r["pairs"] < SLAM_MIN_FRAMES or not (
+                        r["ate"]["rmse"] <= RGBD_ATE_BOUND):
+                    raise AssertionError(f"rgbd {tag}: {r['pairs']} frames, "
+                                         f"ATE {r['ate']['rmse'] * 1e3:.3f}"
+                                         " mm")
+                if abs(fs.n_dvo_poses - RGBD_DVO_POSES) > \
+                        RGBD_DVO_POSES_SLACK:
+                    raise AssertionError(
+                        f"rgbd {tag}: dvo's pose kept on {fs.n_dvo_poses} "
+                        f"frames, the JAX package's {RGBD_DVO_POSES} "
+                        f"+- {RGBD_DVO_POSES_SLACK}")
+            require_launched(f"rgbd {tag}", r["counts"], ("track_reduce",),
+                             at_least=dvo)
+            if unit:
+                backend = r["backend"]
+                log(f"[rgbd {tag}] backend calls {backend.call_num}, "
+                    f"{backend.last_fuse}; "
+                    + require_edge_filter(f"rgbd {tag}",
+                                          r["counts"]["edge_kth"],
+                                          r["edge_calls"], 1))
+                if backend.call_num < 1:
+                    raise AssertionError(f"rgbd {tag}: no backend call")
+                require_launched(f"rgbd {tag}", r["counts"],
+                                 ("bilinear_sample",))
+        if runs["full"]["digest"] != runs["vo"]["digest_48"]:
+            raise AssertionError("rgbd: the unit run's result.txt differs "
+                                 "from the VO run's first 48 lines")
+        log("[rgbd] the 48-frame unit run's result.txt equals the first 48 "
+            "lines of the VO run's (sha256)")
+        times = _rgbd_op_times(dev, runs["vo"])
+        log(f"[rgbd] {card_label_once()} CUDA events ms a call on the VO "
+            f"run's final state (256x192): {json.dumps(times)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts = {f"rgbd_{k}": v["counts"] for k, v in runs.items()}
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_dr_debug(dev) -> dict:
+    """The port's dr_debug_example CLI on the card over replica_traj with
+    its GT poses (gt_tum.txt) at the CLI's default --limit 20: per frame
+    the allocate, integrate and raycast ms (host clock, synchronized),
+    the rendered-valid share, and the render against the frame's own GT
+    depth: it must hit > 0.8 of the GT-depth pixels with a median |error|
+    < 2 voxels. The mesh must not be empty."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from tandem_tpu_torch.cli import dr_debug_example as cli
+    work = Path(tempfile.mkdtemp(prefix="dr_debug_"))
+    try:
+        args = cli.parser.parse_args([
+            "--rgb", str(FIXTURE / "images"), "--depth",
+            str(FIXTURE / "depths"), "--calib",
+            str(FIXTURE / "camera_dso.txt"), "--poses",
+            str(FIXTURE / "gt_tum.txt"), "--out", str(work)])
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(args)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        from tandem_tpu_torch.data.reader import RGBDReader
+        reader = RGBDReader(str(FIXTURE / "images"),
+                            depth_path=str(FIXTURE / "depths"),
+                            depth_scale=res["depth_scale"])
+        vs = res["cfg"].voxel_size
+        rows = []
+        for i, (r, t) in enumerate(zip(res["renders"], res["times"])):
+            gt = reader.get_depth(i)
+            both = (gt > 0) & (r > 0)
+            hit = float(both.sum() / max((gt > 0).sum(), 1))
+            med = float(np.median(np.abs(r[both] - gt[both])) / vs)
+            rows.append((i, round(t["allocate"] * 1e3, 3),
+                         round(t["integrate"] * 1e3, 3),
+                         round(t["raycast"] * 1e3, 3),
+                         round(float((r > 0).mean()), 4), round(hit, 4),
+                         round(med, 3)))
+            if not (hit > 0.8 and med < 2.0):
+                raise AssertionError(f"dr_debug frame {i}: hit {hit:.4f}, "
+                                     f"median |error| {med:.3f} voxels")
+        lines = buf.getvalue().splitlines()
+        log(f"[dr_debug] {card_label_once()} {len(rows)} frames in "
+            f"{seconds:.3f} s (mesh and PNGs included); the CLI printed "
+            f"{lines[0]!r} ... {lines[-1]!r}")
+        log("[dr_debug] per frame (index, allocate ms, integrate ms, raycast "
+            "ms, rendered-valid share, hit share of the GT-depth pixels, "
+            f"median |error| in voxels), host clock synchronized: {rows}")
+        log(f"[dr_debug] n_allocated {res['volume'].n_allocated}, mesh "
+            f"{res['vertices']} vertices; kernel launches {counts}")
+        if res["vertices"] == 0 or len(rows) != args.limit:
+            raise AssertionError(f"dr_debug: an empty mesh or not "
+                                 f"{args.limit} frames")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return counts
 
 
 def _train_cli(dev, out_dir: Path, pretrained: str = None,
@@ -2670,6 +3161,8 @@ def main() -> int:
             lap("track 640x480")
             phase_culled(dev, backend, pack)
             lap("culled")
+            phase_sensor_640(dev, backend, pack)
+            lap("sensor 640x480")
         del runner, backend
         torch.cuda.empty_cache()
     phase_wall(dev)
@@ -2680,6 +3173,10 @@ def main() -> int:
     lap("track mvs")
     paths.update(phase_slam(dev))
     lap("slam")
+    paths.update(phase_rgbd(dev))
+    lap("rgbd")
+    paths["dr_debug"] = phase_dr_debug(dev)
+    lap("dr_debug")
     paths.update(phase_train(dev))
     lap("train")
     paths.update(phase_eval(dev))

@@ -14,10 +14,13 @@ Usage:
       [mvsnet_folder=EXPORTED_DIR] [end=N] [device=cpu]
 
 It runs on the card; ``device=cpu`` (this port's own key, not a DSO
-setting) runs it on the CPU. Not ported, each raising NotImplementedError:
-rgbd=1, log_stuff=1, debug_save_depth_images=1, viewer3d=1,
-save_dr_video=1, preload=1 (so preset=runtime), and a unit that holds only
-model.stablehlo.
+setting) runs it on the CPU. ``rgbd=1`` means what it means in the JAX
+CLI, which reads no depth: monocular tracking with the Student-t weights
+(``track_frame(..., tdist=True)``); the dvo RGB-D tracker runs through the
+API (``FullSystem.add_active_frame(..., depth=)``). Not ported, each
+raising NotImplementedError: log_stuff=1, debug_save_depth_images=1,
+viewer3d=1, save_dr_video=1, preload=1 (so preset=runtime), and a unit
+that holds only model.stablehlo.
 """
 
 from __future__ import annotations
@@ -69,8 +72,7 @@ def playback_gate(target: float, since_start: float, frame_parity: int):
 
 
 def _not_ported(s):
-    for flag, item in (("rgbd", "Queue 1 item 5 (RGB-D, tracking/dvo.py)"),
-                       ("log_stuff", "Queue 1, debug logging "
+    for flag, item in (("log_stuff", "Queue 1, debug logging "
                                      "(utils/dso_log.py)"),
                        ("debug_save_depth_images", "Queue 1, debug logging "
                                                    "(utils/dso_log.py)"),

@@ -1,7 +1,8 @@
 """DSO-style dataset reader: image folders or zips with times.txt,
-geometric and photometric undistortion.
+geometric and photometric undistortion, and RGB-D depth folders.
 
-Port of ``ImageFolderReader`` from ``tandem_tpu/data/reader.py`` (parity
+Port of ``ImageFolderReader`` and ``RGBDReader`` from
+``tandem_tpu/data/reader.py`` (parity
 target tandem/src/util/DatasetReader.h:115-505): an alphabetically sorted
 folder or zip of images, an optional times.txt ("id timestamp [exposure]"),
 and per image an intensity image for tracking plus a BGR image for the MVS
@@ -19,7 +20,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .replica import decode_png, gray
+from .replica import decode_png, gray, read_png
 from .undistort import PhotometricUndistorter, Undistort, remap_u8
 
 _IMAGE_SUFFIXES = (".jpg", ".png", ".jpeg")
@@ -135,3 +136,24 @@ class ImageFolderReader:
                            self.undistort.remap_y)
             return np.clip(out, 0, 255).astype(np.uint8)
         return bgr
+
+
+class RGBDReader(ImageFolderReader):
+    """Adds 16-bit depth PNGs from a sibling 'depth' directory
+    (DatasetReader.h:506 RGBDReader), decoded with numpy."""
+
+    def __init__(self, path: str, depth_path: Optional[str] = None,
+                 depth_scale: float = 1.0 / 5000.0, **kwargs):
+        super().__init__(path, **kwargs)
+        self.depth_path = depth_path or os.path.join(
+            os.path.dirname(path.rstrip("/")), "depth")
+        self.depth_scale = depth_scale
+        self.depth_files = sorted(
+            f for f in os.listdir(self.depth_path)
+            if f.lower().endswith(".png"))
+
+    def get_depth(self, idx: int) -> np.ndarray:
+        """(H, W) float32 metres: the raw value times depth_scale (in
+        float32, as the JAX reader computes it)."""
+        d = read_png(os.path.join(self.depth_path, self.depth_files[idx]))
+        return d.astype(np.float32) * self.depth_scale

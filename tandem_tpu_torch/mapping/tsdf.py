@@ -38,9 +38,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..utils.consts import const
+from ..utils.consts import const, reciprocal32
 
 CHUNK = 8192  # blocks per integrate/render pass (bounds the temporaries)
+RAYCAST_FILL_ROUNDS = 4  # 3x3 min fills of the raycast's seed z-buffer
+RAYCAST_STEPS = 5        # the raycast's sphere-tracing steps a ray
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +109,13 @@ def grow_volume(cfg: TsdfConfig,
     vol.weight = grow(vol.weight)
     vol.color = grow(vol.color)
     return dataclasses.replace(cfg, pool_size=new_pool), vol
+
+
+def copy_volume(vol: TsdfVolume) -> TsdfVolume:
+    """A deep copy: every tensor cloned, so that one state can feed two
+    in-place updates."""
+    return dataclasses.replace(vol, **{f: getattr(vol, f).clone() for f in (
+        "page_table", "block_coords", "tsdf", "weight", "color")})
 
 
 def _table_index(cfg: TsdfConfig, block):
@@ -492,10 +501,12 @@ def _splat_axis_candidates(cfg: TsdfConfig, vol: TsdfVolume, K, R, t,
 
 def render_depth_splat(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
                        H: int, W: int, slots=None, n_visible: int = None,
-                       axis_slots=None, axis_counts=None):
+                       axis_slots=None, axis_counts=None,
+                       fill_rounds: int = 2):
     """Render the model depth at ``cam_to_world`` by splatting per-column
     sdf zero crossings into a z-buffer (occlusion = scatter min), then
-    filling holes. Returns (H, W) depth, 0 where empty.
+    filling holes (``fill_rounds`` rounds of ``_fill_holes``). Returns
+    (H, W) depth, 0 where empty.
 
     By default every allocated block is walked. ``slots``/``n_visible``
     (``visible_slots`` at this camera) walk only the frustum-culled blocks;
@@ -503,6 +514,20 @@ def render_depth_splat(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
     splat each axis over only the blocks that can cross along it (the
     backend's path). All three give the same depth exactly.
     """
+    zbuf = splat_zbuf(cfg, vol, K, cam_to_world, H, W, slots=slots,
+                      n_visible=n_visible, axis_slots=axis_slots,
+                      axis_counts=axis_counts)
+    depth = zbuf.reshape(H, W)
+    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
+    return _fill_holes(depth, fill_rounds)
+
+
+def splat_zbuf(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world, H: int,
+               W: int, slots=None, n_visible: int = None, axis_slots=None,
+               axis_counts=None):
+    """The splat render's raw z-buffer before any fill (the JAX package's
+    ``_splat_init`` + chunks): (H * W,) nearest crossing depth per pixel,
+    inf where none. The block walks are ``render_depth_splat``'s."""
     R, t = _world_to_cam(cam_to_world)
     # One spare slot takes every column without a valid crossing.
     zbuf = torch.full((H * W + 1,), float("inf"), device=vol.tsdf.device)
@@ -523,17 +548,15 @@ def render_depth_splat(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
                     else slots[start:min(start + CHUNK, n)])
             for axis in range(3):
                 splat(rows, axis)
-    depth = zbuf[:H * W].reshape(H, W)
-    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
-    return _fill_holes(depth)
+    return zbuf[:H * W]
 
 
-def _fill_holes(depth):
-    """Fill empty pixels from the 3x3 neighbourhood minimum, twice (close
-    voxel shells project sparsely)."""
+def _fill_holes(depth, rounds: int = 2):
+    """Fill empty pixels (<= 0) from the 3x3 neighbourhood minimum,
+    ``rounds`` times (close voxel shells project sparsely)."""
     H, W = depth.shape
     inf = float("inf")
-    for _ in range(2):
+    for _ in range(rounds):
         p = torch.nn.functional.pad(depth, (1, 1, 1, 1), value=inf)
         p = torch.where(p > 0, p, torch.full_like(p, inf))
         m = torch.full_like(depth, inf)
@@ -549,13 +572,9 @@ def _fill_holes(depth):
 def _get_voxels(cfg: TsdfConfig, vol: TsdfVolume, pts_w):
     """Look up (sdf, weight, color) at world points: pts_w (N, 3) -> sdf
     (N,), weight (N,), color (N, 3); unallocated points have weight 0."""
-    dev = pts_w.device
-    # Times the f32 reciprocal, as XLA compiles the JAX package's division
-    # by a constant (and CUDA a tensor / float).
-    def recip(x):
-        return const(float(np.float32(1) / np.float32(x)), dev)
-    vox = torch.floor(pts_w * recip(cfg.voxel_size)).to(torch.int32)
-    block = torch.floor(pts_w * recip(cfg.block_extent)).to(torch.int32)
+    vox = torch.floor(pts_w * reciprocal32(cfg.voxel_size)).to(torch.int32)
+    block = torch.floor(pts_w * reciprocal32(cfg.block_extent)).to(
+        torch.int32)
     return _voxels_at(cfg, vol, vox, block)
 
 
@@ -572,3 +591,109 @@ def _voxels_at(cfg: TsdfConfig, vol: TsdfVolume, vox, block):
     return (vol.tsdf[slot_safe, li], torch.where(allocated, w,
                                                  torch.zeros_like(w)),
             vol.color[slot_safe, li])
+
+
+def _get_interpolated(cfg: TsdfConfig, vol: TsdfVolume, pts_w):
+    """Trilinear interpolation with the centre-value fallback for empty
+    corners (GetInterpolatedVoxel, tsdf_volume.cu:161-): pts_w (N, 3) ->
+    sdf (N,), weight (N,) of the centre voxel, color (N, 3); 0 where the
+    centre voxel is empty."""
+    vs = cfg.voxel_size
+    sdf0, w0, col0 = _get_voxels(cfg, vol, pts_w)
+    g = pts_w * reciprocal32(vs)
+    frac = g - torch.floor(g)                             # (N, 3)
+    sdf_acc = torch.zeros_like(sdf0)
+    col_acc = torch.zeros_like(col0)
+    for ox in (0, 1):
+        for oy in (0, 1):
+            for oz in (0, 1):
+                # The point shifted by whole voxels, then back by half of
+                # one, in the JAX package's march's order of the roundings.
+                off = const((ox * float(np.float32(vs)),
+                             oy * float(np.float32(vs)),
+                             oz * float(np.float32(vs))), pts_w.device)
+                s, w, c = _get_voxels(cfg, vol, pts_w + off - 0.5 * vs)
+                use = w > 0
+                s = torch.where(use, s, sdf0)
+                c = torch.where(use[:, None], c, col0)
+                wt = ((frac[:, 0] if ox else 1 - frac[:, 0])
+                      * (frac[:, 1] if oy else 1 - frac[:, 1])
+                      * (frac[:, 2] if oz else 1 - frac[:, 2]))
+                sdf_acc = sdf_acc + wt * s
+                col_acc = col_acc + wt[:, None] * c
+    zero = torch.zeros_like(sdf_acc)
+    return (torch.where(w0 > 0, sdf_acc, zero), w0,
+            torch.where(w0[:, None] > 0, col_acc, torch.zeros_like(col_acc)))
+
+
+def raycast(cfg: TsdfConfig, vol: TsdfVolume, K_and_pose, H: int, W: int):
+    """Render depth and colour from a camera by splat-seeded sphere tracing
+    (the reference's GenerateRgbDepthKernel, tsdf_volume.cu:600-632, in the
+    JAX package's design): the full-walk splat z-buffer of the allocated
+    blocks seeds each ray near the surface, RAYCAST_FILL_ROUNDS rounds of
+    3x3 min fill close small z-buffer gaps, and each ray then takes
+    RAYCAST_STEPS sphere-tracing steps from max(seed - 2 truncation, 0)
+    with the reference's hit semantics. Rays with no geometry in reach
+    render empty, as the reference's free-space march returns them.
+
+    :param K_and_pose: (K (3, 3), cam_to_world (4, 4)) tensors on the
+        volume's device
+    :return: depth (H, W) float32 (0 where no hit), colour (H, W, 3)
+    """
+    K, cam_to_world = K_and_pose
+    zbuf = splat_zbuf(cfg, vol, K, cam_to_world, H, W)
+    return _raycast_march(cfg, vol, K, cam_to_world, zbuf, H, W)
+
+
+def _raycast_march(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world, zbuf,
+                   H: int, W: int):
+    """The march of ``raycast`` from the raw z-buffer (H * W,). It reads the
+    float32 volume, as the reference does (the JAX package's bf16 march and
+    colour tables and its int16 page table are TPU gather-cache tricks)."""
+    dev = zbuf.device
+    trunc, vs = cfg.truncation, cfg.voxel_size
+    u = torch.arange(W, dtype=torch.float32, device=dev).repeat(H)
+    v = torch.arange(H, dtype=torch.float32, device=dev).repeat_interleave(W)
+    R = cam_to_world[:3, :3]
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    rcx = (u - cx) / fx
+    rcy = (v - cy) / fy
+    ray = torch.stack([R[i, 0] * rcx + R[i, 1] * rcy + R[i, 2]
+                       for i in range(3)], -1)            # (H * W, 3)
+    origin = cam_to_world[:3, 3]
+
+    # Seed: the splatted surface depth with holes min-filled; holes are
+    # the inf entries (not _fill_holes' <= 0 test).
+    inf = float("inf")
+    splat = zbuf.reshape(H, W)
+    for _ in range(RAYCAST_FILL_ROUNDS):
+        p = torch.nn.functional.pad(splat, (1, 1, 1, 1), value=inf)
+        m = splat
+        for dy in range(3):
+            for dx in range(3):
+                m = torch.minimum(m, p[dy:dy + H, dx:dx + W])
+        splat = torch.where(torch.isfinite(splat), splat, m)
+    splat = torch.where(torch.isfinite(splat), splat,
+                        torch.zeros_like(splat)).reshape(-1)
+
+    zero = torch.zeros_like(splat)
+    cur = torch.where(splat > 0, torch.clamp(splat - 2.0 * trunc, min=0.0),
+                      zero)
+    hit = torch.zeros(H * W, dtype=torch.bool, device=dev)
+    for _ in range(RAYCAST_STEPS):
+        sdf, w, _ = _get_voxels(cfg, vol, origin + ray * cur[:, None])
+        step = torch.where(w > 0, sdf, torch.full_like(sdf, trunc))
+        active = ~hit & (cur < cfg.max_depth)
+        # The reference advances before its break test, so the depth
+        # includes the final sdf step (GenerateRgbDepthKernel:610-621).
+        cur = torch.where(active, cur + step, cur)
+        hit = hit | (active & (w > 0) & (sdf < vs))
+    found = hit & (cur < cfg.max_depth)
+
+    # The hit colour: the trilinear lookup with the centre fallback at the
+    # world point on the ray (the corners shift the point, not the depth).
+    _, _, col = _get_interpolated(cfg, vol, origin + ray * cur[:, None])
+    depth_out = torch.where(found, cur, zero).reshape(H, W)
+    color_out = torch.where(found[:, None], col,
+                            torch.zeros_like(col)).reshape(H, W, 3)
+    return depth_out, color_out

@@ -18,8 +18,17 @@ A frame costs one packed host read of the tracker's outputs (plus the
 tracker's own reads of its LM state); a keyframe a few more, each one
 packed tensor. Frames are uploaded as uint8 and cast on the device.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item): RGB-D
-(``rgbd``), ``log_stuff`` and ``debug_save_depth_images``, output wrappers.
+RGB-D mode (``rgbd`` with a sensor depth per frame, FullSystem.cpp's
+rgbd_flag): the first frame is initialized from its depth (no
+initializer), each frame is tracked by dvo-core's dense bivariate tracker
+on pyramid level 1 (``tracking/dvo.py``, CoarseTracker::
+trackNewestCoarseDense) and its DSO residual statistics are taken at that
+pose (``calc_res_eval``, K6), with the Student-t ``track_frame`` as the
+fallback; keyframes seed points and the tracking reference from their
+depth. The dvo path adds no host read: its ``n`` shares the frame's read.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item):
+``log_stuff`` and ``debug_save_depth_images``, output wrappers.
 """
 
 from __future__ import annotations
@@ -34,10 +43,11 @@ import torch
 from ..models.cva_mvsnet import pin_f32_precision
 from ..tracking.ba import (BAState, _bilinear, ba_iterate, create_ba_state,
                            marginalize_frame, pattern, remove_outliers)
-from ..tracking.coarse_tracker import (make_tracker_ref,
+from ..tracking.coarse_tracker import (calc_res_eval, make_tracker_ref,
                                        rotation_perturbations,
                                        splat_depth_to_ref, track_frame,
                                        track_frame_multi)
+from ..tracking.dvo import build_rgbd_pyramid, dense_match
 from ..tracking.immature import (ImmaturePoints, activate_points,
                                  make_immature, trace_points)
 from ..tracking.initializer import initializer_track, make_initializer
@@ -159,7 +169,7 @@ class FullSystemOptions:
     mvs_view_num: int = 7
     mvs_discard_percentage: float = 10.0  # setting_mvsnet_discard_percentage
     tracking_step: int = 3            # setting_tracking_step dense stride
-    rgbd: bool = False                # RGB-D mode (not ported)
+    rgbd: bool = False                # RGB-D mode (rgbd_flag)
     dense_tracking: bool = True       # tracking=dense vs sparse
     # linearizeOperation (playbackSpeed == 0): a busy backend is waited
     # for; real-time mode drops the keyframe (FullSystem.cpp:1144-1151).
@@ -211,6 +221,8 @@ class Keyframe:
         self.n_immature: int = 0    # host count at creation
         self.n_points_total: int = 0  # BA points ever inserted for this KF
         self.bgr: Optional[np.ndarray] = None
+        self.sensor_depth: Optional[np.ndarray] = None  # RGB-D mode
+        self.sensor_depth_dev: Optional[torch.Tensor] = None
         self._c2w_src = self._c2w_dev = None
 
     def c2w_on(self, device) -> torch.Tensor:
@@ -239,10 +251,6 @@ class FullSystem:
                  options: FullSystemOptions = None, backend=None,
                  timer: Timer = None, outputs=None, device=None):
         self.opt = options or FullSystemOptions()
-        if self.opt.rgbd:
-            raise NotImplementedError(
-                "RGB-D mode (tracking/dvo.py) is not ported: ROADMAP "
-                "Queue 1 item 5")
         if self.opt.log_stuff or self.opt.debug_save_depth_images:
             raise NotImplementedError(
                 "log_stuff / debug_save_depth_images (utils/dso_log.py) are "
@@ -275,6 +283,11 @@ class FullSystem:
         self.all_ts: List[float] = []
 
         self.tracker_ref = None
+        self._dvo_ref = None        # RGB-D: the reference's dvo pyramid
+        self._current_depth = None  # RGB-D: this frame's depth (host, card)
+        self.n_dvo_frames = 0       # frames the dvo branch tracked
+        self.n_dvo_fallbacks = 0    # dvo frames that fell back to LM
+        self.n_dvo_poses = 0        # frames whose pose is dvo's (no retry)
         self.ref_kf: Optional[Keyframe] = None
         self.last_c2w = np.eye(4, dtype=np.float32)
         self.prev_c2w = np.eye(4, dtype=np.float32)
@@ -300,19 +313,24 @@ class FullSystem:
     def add_active_frame(self, gray: np.ndarray, frame_id: int,
                          timestamp: float = None, bgr: np.ndarray = None,
                          depth: np.ndarray = None):
-        if depth is not None:
-            raise NotImplementedError(
-                "RGB-D input (tracking/dvo.py) is not ported: ROADMAP "
-                "Queue 1 item 5")
+        """:param depth: optional (H, W) sensor depth in metres (RGB-D
+        mode; 0 = invalid)."""
         timestamp = float(frame_id) if timestamp is None else timestamp
         # uint8 frames go up as uint8 and are cast on the device (no /255).
         if gray.dtype == np.uint8:
             img = upload(gray, self.device, np.uint8).float()
         else:
             img = self._tensor(gray)
+        self._current_depth = None
+        if depth is not None and self.opt.rgbd:
+            depth = np.asarray(depth, np.float32)
+            self._current_depth = (depth, self._tensor(depth))
 
         if not self.keyframes:
-            self._first_frame(img, frame_id, timestamp, bgr)
+            if self.opt.rgbd and depth is not None:
+                self._first_frame_rgbd(img, frame_id, timestamp, bgr)
+            else:
+                self._first_frame(img, frame_id, timestamp, bgr)
             return
         if not self.initialized:
             tid = self.timer.start_timing("initializer")
@@ -323,8 +341,25 @@ class FullSystem:
         tid = self.timer.start_timing("track_frame")
         T_init = self._motion_model()
         aff0 = const((1.0, 0.0), self.device)
-        out = self._read_track(track_frame(
-            self.tracker_ref, img, self._tensor(T_init), aff0))
+        tdist = self.opt.rgbd
+        # RGB-D: dvo-core's dense tracker on level 1, then the DSO residual
+        # statistics at its pose (trackNewestCoarseDense, CoarseTracker.cpp:
+        # 939-964); kept when the energy is finite and n >= 6.
+        dvo_tracked = False
+        if (self.opt.rgbd and depth is not None
+                and self._dvo_ref is not None):
+            self.n_dvo_frames += 1
+            cur_pyr = build_rgbd_pyramid(img, self._current_depth[1],
+                                         *self.K, num_levels=2)
+            m = dense_match(self._dvo_ref, cur_pyr, self._tensor(T_init),
+                            on_level=1)
+            out = self._read_track(calc_res_eval(self.tracker_ref, img,
+                                                 m["T"], aff0), m["n"])
+            dvo_tracked = np.isfinite(out["energy"]) and out["extra"] >= 6
+            self.n_dvo_fallbacks += not dvo_tracked
+        if not dvo_tracked:
+            out = self._read_track(track_frame(
+                self.tracker_ref, img, self._tensor(T_init), aff0, tdist))
         energy = out["energy"]
 
         # The retry ladder (trackNewCoarse, FullSystem.cpp:449-529), gated
@@ -351,7 +386,8 @@ class FullSystem:
                          @ np.asarray(self.ref_kf.c2w))          # zero motion
             cands.append(np.eye(4))                              # at the KF
             out = self._read_track(track_frame_multi(
-                self.tracker_ref, img, self._tensor(np.stack(cands)), aff0))
+                self.tracker_ref, img, self._tensor(np.stack(cands)), aff0,
+                tdist))
             energy = out["energy"]
             if (not np.isfinite(energy) or out["valid_frac"] < 0.3
                     or energy > 1.5 * self._last_coarse_rmse):
@@ -359,7 +395,7 @@ class FullSystem:
                 out2 = self._read_track(track_frame_multi(
                     self.tracker_ref, img,
                     self._tensor(np.einsum("nij,jk->nik", perts, T_init)),
-                    aff0))
+                    aff0, tdist))
                 e2 = out2["energy"]
                 if np.isfinite(e2) and (not np.isfinite(energy)
                                         or e2 < energy):
@@ -372,6 +408,8 @@ class FullSystem:
             # "BIG ERROR! tracking failed entirely" (FullSystem.cpp:610-615)
             self.is_lost = True
             return
+        if dvo_tracked and not bad:
+            self.n_dvo_poses += 1
         self._last_energy = energy
         self._last_coarse_rmse = energy   # lastCoarseRMSE = achievedRes
         c2w = _nearest_rigid(self.ref_kf.c2w @ _np_rigid_inverse(out["T"]))
@@ -388,15 +426,17 @@ class FullSystem:
             self._make_keyframe(img, frame_id, timestamp, c2w, bgr)
 
     @staticmethod
-    def _read_track(out: dict) -> dict:
+    def _read_track(out: dict, extra=None) -> dict:
         """The tracker's outputs in one host read: T as float32 (4, 4),
-        aff (2,), flow (3,) and the scalars as floats."""
-        T, aff, e, n, vf, flow = _fetch(out["T"], out["aff"], out["energy"],
-                                        out["num_terms"], out["valid_frac"],
-                                        out["flow"])
+        aff (2,), flow (3,) and the scalars as floats; ``extra`` (a 0-dim
+        tensor) joins the read as ``out["extra"]``."""
+        more = () if extra is None else (extra,)
+        T, aff, e, n, vf, flow, *rest = _fetch(
+            out["T"], out["aff"], out["energy"], out["num_terms"],
+            out["valid_frac"], out["flow"], *more)
         return {"T": T.astype(np.float32), "aff": aff, "energy": float(e),
                 "num_terms": float(n), "valid_frac": float(vf),
-                "flow": flow}
+                "flow": flow, "extra": float(rest[0]) if rest else None}
 
     def _select_uv(self, img) -> Tuple[np.ndarray, int]:
         """Gradient-based candidate selection with DSO-style density
@@ -426,6 +466,33 @@ class FullSystem:
         return uv, n
 
     # ------------------------------------------------------------------
+    def _first_frame_rgbd(self, img, frame_id, timestamp, bgr):
+        """RGB-D initialization: the sensor depth gives metric structure at
+        frame 0 (CoarseRGBDInitializer, FullSystem.cpp:1000-1013)."""
+        kf = Keyframe(frame_id, timestamp, img, np.eye(4, dtype=np.float32))
+        kf.bgr = bgr
+        kf.kf_id = 0
+        kf.sensor_depth, kf.sensor_depth_dev = self._current_depth
+        self.keyframes.append(kf)
+        self.ref_kf = kf
+        self._record_pose(frame_id, timestamp, kf.c2w)
+        self._assign_slot(kf)
+
+        uv, n_sel = self._select_uv(img)
+        d = kf.sensor_depth[uv[:, 1].astype(int), uv[:, 0].astype(int)]
+        self._insert_points(kf, uv, 1.0 / np.maximum(d, 0.05), d > 0.05)
+
+        depth = kf.sensor_depth_dev
+        valid = depth > 0.05
+        idepth0 = torch.where(valid, 1.0 / torch.clamp(depth, min=0.05),
+                              torch.zeros_like(depth))
+        self.tracker_ref = make_tracker_ref(
+            img, *self.K, sparse_idepth=idepth0, sparse_weight=valid.float())
+        self._dvo_ref = build_rgbd_pyramid(img, depth, *self.K, num_levels=2)
+        kf.immature = make_immature(self._tensor(uv), img)
+        kf.n_immature = min(n_sel, self.opt.immature_cap)
+        self.initialized = True
+
     def _first_frame(self, img, frame_id, timestamp, bgr):
         kf = Keyframe(frame_id, timestamp, img, np.eye(4, dtype=np.float32))
         kf.bgr = bgr
@@ -622,6 +689,8 @@ class FullSystem:
         kf = Keyframe(frame_id, timestamp, img, c2w)
         kf.bgr = bgr
         kf.kf_id = len(self.keyframes)
+        if self.opt.rgbd and self._current_depth is not None:
+            kf.sensor_depth, kf.sensor_depth_dev = self._current_depth
         # Marginalization selection runs before the new KF joins the
         # window; flagged frames still take part in the BA below.
         t_flag = self.timer.start_timing("kf_flag")
@@ -647,6 +716,13 @@ class FullSystem:
                     host_kf.c2w_on(self.device), tgt_c2w, img, host_kf.image,
                     self.K)
         self.timer.end_timing("kf_activate", t_act)
+        # RGB-D: points of the new keyframe straight from its sensor depth
+        # (makeNewTraces' GT seeding: idepth_min = idepth_max = 1/depth).
+        if kf.sensor_depth is not None:
+            uv0, _ = self._select_uv(img)
+            d0 = kf.sensor_depth[uv0[:, 1].astype(int), uv0[:, 0].astype(int)]
+            self._insert_points(kf, uv0, 1.0 / np.maximum(d0, 0.05),
+                                d0 > 0.05)
 
         mvs = self.backend.get_tracking_depth_map() if self.backend else None
 
@@ -732,7 +808,18 @@ class FullSystem:
         idepth0, weight0 = _project_ba_points(self.ba_state, ref_c2w, self.K,
                                               self.H, self.W)
         dense_id = dense_w = None
-        if (self.opt.dense_tracking and mvs is not None
+        if kf.sensor_depth is not None:
+            # RGB-D: the dense injection is the sensor depth on the
+            # tracking grid.
+            depth = kf.sensor_depth_dev
+            st = self.opt.tracking_step
+            gy = torch.arange(self.H, device=self.device) % st == 0
+            gx = torch.arange(self.W, device=self.device) % st == 0
+            use = (depth > 0.05) & gy[:, None] & gx[None, :]
+            dense_id = torch.where(use, 1.0 / torch.clamp(depth, min=0.05),
+                                   torch.zeros_like(depth))
+            dense_w = use.float()
+        elif (self.opt.dense_tracking and mvs is not None
                 and mvs.get("valid")):
             dense_id, dense_w = splat_depth_to_ref(
                 mvs["depth"], self._tensor(mvs["c2w"]), ref_c2w,
@@ -741,6 +828,15 @@ class FullSystem:
         self.tracker_ref = make_tracker_ref(
             kf.image, *self.K, sparse_idepth=idepth0, sparse_weight=weight0,
             dense_idepth=dense_id, dense_weight=dense_w)
+        # RGB-D: the dvo reference pyramid of the new tracking reference
+        # (HessianBlocks.h:307-319). A keyframe without depth drops the old
+        # one, so dense_match never runs against a stale reference; such
+        # frames take the track_frame path.
+        if self.opt.rgbd and kf.sensor_depth is not None:
+            self._dvo_ref = build_rgbd_pyramid(kf.image, kf.sensor_depth_dev,
+                                               *self.K, num_levels=2)
+        elif self.opt.rgbd:
+            self._dvo_ref = None
 
     def _trace_on_frame(self, img, c2w):
         """traceNewCoarse: update the immature points of the window's

@@ -28,3 +28,11 @@ def upload(array, device, dtype=np.float32) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def reciprocal32(x: float) -> float:
+    """The float32 reciprocal of a constant, as a Python float. XLA compiles
+    the JAX package's division by a constant as a product with it (and
+    CUDA a ``tensor / float``), so the port multiplies by it where the
+    JAX package divides by a constant."""
+    return float(np.float32(1) / np.float32(x))

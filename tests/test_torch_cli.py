@@ -117,7 +117,7 @@ def test_strict_arguments(sequence, tmp_path):
         tandem_dataset.main([f"calib={sequence[1]}", "device=cpu"])
 
 
-@pytest.mark.parametrize("flag", ["rgbd=1", "log_stuff=1", "viewer3d=1",
+@pytest.mark.parametrize("flag", ["log_stuff=1", "viewer3d=1",
                                   "save_dr_video=1", "preload=1",
                                   "debug_save_depth_images=1"])
 def test_options_not_ported_raise(sequence, tmp_path, flag):

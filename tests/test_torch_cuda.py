@@ -643,7 +643,6 @@ def test_track_frame_card_matches_cpu(dev):
 def test_culled_tsdf_equals_full_on_card(dev):
     """integrate_culled and the frustum- and axis-culled renders equal the
     full walk exactly on the card (a curved surface, turned cameras)."""
-    from chip_smoke import _copy_volume
     from tandem_tpu_torch.mapping import tsdf as tt
     Hh, Ww = 60, 80
     cfg = tt.TsdfConfig(voxel_size=0.02, table_dim=64, pool_size=4096,
@@ -664,7 +663,7 @@ def test_culled_tsdf_equals_full_on_card(dev):
         p[0, 0], p[0, 2], p[2, 0], p[2, 2] = (np.cos(a), np.sin(a),
                                               -np.sin(a), np.cos(a))
         slots, n_vis = tt.visible_slots(cfg, vol, K, p, Hh, Ww)
-        copies = [_copy_volume(vol) for _ in range(2)]
+        copies = [tt.copy_volume(vol) for _ in range(2)]
         tt.integrate(cfg, copies[0], depth, color, K, p)
         tt.integrate_culled(cfg, copies[1], depth, color, K, p, slots,
                             int(n_vis))
@@ -677,6 +676,118 @@ def test_culled_tsdf_equals_full_on_card(dev):
         assert torch.equal(full, tt.render_depth_splat(
             cfg, vol, K, p, Hh, Ww, axis_slots=s3, axis_counts=c3.tolist()))
 
+
+
+def _textured_plane(c2w, Hh=120, Ww=160, f=150.0):
+    """Intensity and z-depth of a textured plane z_w = 2 seen from c2w."""
+    cx, cy = (Ww - 1) / 2, (Hh - 1) / 2
+    u, v = np.meshgrid(np.arange(Ww, dtype=np.float64),
+                       np.arange(Hh, dtype=np.float64))
+    rays = np.stack([(u - cx) / f, (v - cy) / f, np.ones_like(u)], -1)
+    rays = rays @ c2w[:3, :3].T
+    s = (2.0 - c2w[2, 3]) / rays[..., 2]
+    p = c2w[:3, 3] + rays * s[..., None]
+    img = (128 + 60 * np.sin(3.0 * p[..., 0]) * np.cos(2.5 * p[..., 1])
+           + 40 * np.sin(7.0 * p[..., 0] + 1) + 20 * np.cos(9.0 * p[..., 1]))
+    return img.astype(np.float32), s.astype(np.float32), (f, f, cx, cy)
+
+
+def test_dense_match_card_matches_cpu(dev):
+    """dvo's dense_match on level 1 (5 masked iterations on the device) on
+    the card against the CPU: T within 1e-4, n and lambda equal."""
+    from tandem_tpu_torch.tracking.dvo import build_rgbd_pyramid, dense_match
+    c2w = np.eye(4)
+    c2w[0, 3], c2w[2, 3] = 0.02, 0.01
+    ref_i, ref_d, K = _textured_plane(np.eye(4))
+    cur_i, cur_d, _ = _textured_plane(c2w)
+    T0 = torch.eye(4)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        ref = build_rgbd_pyramid(torch.from_numpy(ref_i).to(d),
+                                 torch.from_numpy(ref_d).to(d), *K,
+                                 num_levels=2)
+        cur = build_rgbd_pyramid(torch.from_numpy(cur_i).to(d),
+                                 torch.from_numpy(cur_d).to(d), *K,
+                                 num_levels=2)
+        out[d.type] = {k: v.cpu() for k, v in dense_match(
+            ref, cur, T0.to(d), on_level=1).items()}
+    a, b = out["cpu"], out["cuda"]
+    assert (a["T"] - b["T"]).abs().max() <= 1e-4
+    assert float(a["n"]) == float(b["n"]) > 1000
+    assert float(a["lambda"]) == float(b["lambda"])
+    # the match moved toward the truth (the warp is the inverse of c2w)
+    assert abs(float(b["T"][0, 3]) + 0.02) < 5e-3
+
+
+def test_raycast_card_matches_cpu(dev):
+    """The raycast on the card against the CPU on a curved surface seen
+    from a moved camera: hit masks equal on >= 99.9% of the pixels and
+    depth within 1e-4 m on >= 99.5% of the pixels both hit (the card's
+    sums and divisions may round a ray across a voxel face)."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    Hh, Ww = 60, 80
+    cfg = tt.TsdfConfig(voxel_size=0.02, table_dim=64, pool_size=4096,
+                        truncation=0.08, max_depth=8.0)
+    u, v = np.meshgrid(np.arange(Ww), np.arange(Hh))
+    depth = (2.0 + 0.4 * np.sin(u * 0.13) * np.cos(v * 0.11)).astype(
+        np.float32)
+    color = np.stack([128 + 100 * np.sin(u * 0.07), 100 + 0 * u,
+                      60 + 0.5 * u + v], -1).astype(np.float32)
+    K = np.array([[70.0, 0, (Ww - 1) / 2], [0, 70.0, (Hh - 1) / 2],
+                  [0, 0, 1]], np.float32)
+    pose2 = np.eye(4, dtype=np.float32)
+    pose2[:3, 3] = (0.1, -0.05, 0.3)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        vol = tt.create_volume(cfg, d)
+        k, eye = torch.from_numpy(K).to(d), torch.eye(4, device=d)
+        dd = torch.from_numpy(depth).to(d)
+        tt.allocate_blocks(cfg, vol, dd, k, eye)
+        for _ in range(2):
+            tt.integrate(cfg, vol, dd, torch.from_numpy(color).to(d), k, eye)
+        out[d.type] = [x.cpu().numpy() for x in tt.raycast(
+            cfg, vol, (k, torch.from_numpy(pose2).to(d)), Hh, Ww)]
+    (da, ca), (db, cb) = out["cpu"], out["cuda"]
+    assert ((da > 0) == (db > 0)).mean() >= 0.999
+    both = (da > 0) & (db > 0)
+    assert both.sum() > 0.8 * da.size
+    assert (np.abs(da - db)[both] <= 1e-4).mean() >= 0.995
+
+
+def test_dr_debug_example_on_card(dev, tmp_path):
+    """The dr_debug_example CLI on the card for two frames of
+    tests/fixtures/replica_traj: the printed lines, the render PNGs, and
+    the renders within the GT-depth bars (hits > 0.8, median < 2 voxels)."""
+    import contextlib
+    import io
+    import os
+
+    from tandem_tpu_torch.cli import dr_debug_example as cli
+    from tandem_tpu_torch.data.reader import RGBDReader
+    fx = os.path.join(os.path.dirname(__file__), "fixtures", "replica_traj",
+                      "scene0")
+    args = cli.parser.parse_args([
+        "--rgb", os.path.join(fx, "images"), "--depth",
+        os.path.join(fx, "depths"), "--calib",
+        os.path.join(fx, "camera_dso.txt"), "--poses",
+        os.path.join(fx, "gt_tum.txt"), "--out", str(tmp_path),
+        "--depth-scale", "0.0002", "--limit", "2"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = cli.main(args)
+    lines = buf.getvalue().splitlines()
+    assert [ln.split(":")[0] for ln in lines] == ["frame 0", "frame 1",
+                                                  "mesh"]
+    assert res["volume"].tsdf.is_cuda and res["vertices"] > 0
+    reader = RGBDReader(os.path.join(fx, "images"),
+                        depth_path=os.path.join(fx, "depths"),
+                        depth_scale=2e-4)
+    for i, r in enumerate(res["renders"]):
+        assert (tmp_path / f"render_{i:04d}.png").exists()
+        gt = reader.get_depth(i)
+        both = (gt > 0) & (r > 0)
+        assert both.sum() / (gt > 0).sum() > 0.8
+        assert np.median(np.abs(r[both] - gt[both])) < 2 * 0.01
 
 
 def _plane_views(n_views: int, Hh: int = 96, Ww: int = 128, f: float = 90.0):

@@ -135,7 +135,7 @@ def test_reference_idepth_quantile():
 
 
 def test_not_ported_options_raise():
-    for kw in (dict(rgbd=True), dict(log_stuff=True),
+    for kw in (dict(log_stuff=True),
                dict(debug_save_depth_images=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tfs.FullSystem(FX, FY, CX, CY, H, W,
