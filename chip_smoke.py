@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one NVIDIA GPU: the keyframe map path in
 float32 and in bfloat16 (the JAX package's deployed dtype), the dense
-coarse tracker tracking against the TSDF model, the SLAM loop, the
-sensor-depth paths (RGB-D tracking with dvo's dense tracker, the TSDF
-raycast through dr_debug_example), and the training half (tandem_train,
-tandem_eval).
+coarse tracker tracking against the TSDF model, the SLAM loop (also at
+640x480 with preset=runtime), the C image decoder, tandem_demo with its
+recorder and the debug logs, sinks and 3D viewer, the sensor-depth paths
+(RGB-D tracking with dvo's dense tracker, the TSDF raycast through
+dr_debug_example), and the training half (tandem_train, tandem_eval).
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
@@ -107,7 +108,9 @@ Phases, each printing its numbers before the last line:
               initializer, tracking with the retry ladder, immature-point
               tracing, windowed BA, marginalization, the backend, mesh) on
               the fixture's 64 frames, VO only and then the full pipeline
-              with the trained unit (bf16, boot golden self-check) twice:
+              with the trained unit (bf16, boot golden self-check) twice,
+              the second with preload=1 (frames decoded up front; the
+              others through the prefetcher):
               >= SLAM_MIN_FRAMES frames and ATE (Sim3) < SLAM_ATE_BOUND in
               every run; the full runs call the backend, write a non-empty
               mesh, launch K1's filter, bilinear_sample, track_lm and K6,
@@ -116,6 +119,24 @@ Phases, each printing its numbers before the last line:
               per stage, host reads a frame, the calls of the torch-op hot
               spots K7, K8, K11 and _corner_grids a frame or keyframe and
               their CUDA-event ms a call with a bound;
+     runtime 640x480  tandem_dataset preset=runtime (preload=1) with the
+              trained unit on bench_runtime.py's 60-frame synthetic
+              640x480 sequence, written as PNGs with Paeth, Sub, Up and
+              Average rows: frames, seconds, FPS against the 21 FPS bar,
+              the Timer split with read_frame (the decode wait),
+              keyframes, backend calls and tandem_ate's Sim3 ATE against
+              the GT trajectory; >= RUNTIME_MIN_POSES poses, not lost, the
+              backend called, K1, bilinear_sample, K6 and track_lm
+              launched;
+     decode   the C decoder against data/replica.decode_png on the card
+              host's CPU: bit-equal, both times, at 256x192 and 640x480;
+     demo     tandem_demo replay= record= over the fixture's first
+              DEMO_FRAMES frames with the unit: the recorded folder
+              (camera.txt, times.txt, an image a frame) replayed through
+              tandem_dataset with log_stuff, debug_save_depth_images,
+              save_dr_video and viewer3d gives the demo's poses
+              (poses_dso.txt sha256, result.txt's pose columns), and each
+              output directory is non-empty;
      rgbd     FullSystem(rgbd=True) through the API on the fixture's
               frames with their sensor depths (dvo's dense tracker on
               level 1, K6's calc_res_eval, the Student-t fallback and retry
@@ -150,8 +171,9 @@ Phases, each printing its numbers before the last line:
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
-the slices, the three tracking paths, the slam runs, the RGB-D runs, the
-dr_debug run, the training runs and the evals) and read just after it.
+the slices, the three tracking paths, the slam runs, the runtime run,
+the demo and its replay, the RGB-D runs, the dr_debug run, the training
+runs and the evals) and read just after it.
 The last line of stdout is the JSON result; any failed phase exits
 non-zero without it.
 The line before it lists every kernel with its launches on the driven
@@ -197,6 +219,18 @@ MVS_TRACK_BOUND = 0.0532
 # (the JAX package on the CPU reads 10.26 mm VO only, 10.15 mm full).
 SLAM_ATE_BOUND = 0.030
 SLAM_MIN_FRAMES = 56
+# The runtime 640x480 phase: bench_runtime.py's synthetic sequence (60
+# frames, the textured plane at depth 2, the camera moving 0.015 a frame
+# along x) through tandem_dataset preset=runtime with the trained unit;
+# the reference's throughput bar for that preset (BASELINE.md) and the
+# poses the run must keep.
+RUNTIME_FRAMES = 60
+RUNTIME_MIN_POSES = 56
+RUNTIME_FPS_BAR = 21.0
+# The demo phase replays the fixture's first DEMO_FRAMES frames: all 64,
+# since its first 40 make 6 keyframes (the CPU rehearsal) and the 7-view
+# window, so the backend and its sinks, would never run.
+DEMO_FRAMES = 64
 # track_lm, one step against float64 (phase track lm (a)). dx must solve
 # the kernel's own damped system to a componentwise backward error of
 # LM_SOLVE_TOL, |Hl dx + g| / (|Hl| |dx| + |g|) (the f32 plain step: <=
@@ -2117,11 +2151,12 @@ def phase_culled(dev, backend, pack):
 
 
 def _slam_run(dev, out_dir: Path, mvsnet: bool,
-              count_syncs: bool = False) -> dict:
-    """One run of the port's tandem_dataset CLI on the trajectory fixture;
-    its ATE against the GT poses, the launches of each kernel in the run
-    and, with ``count_syncs``, the host reads (synchronizing CUDA calls,
-    by torch's sync debug mode)."""
+              count_syncs: bool = False, preload: bool = False) -> dict:
+    """One run of the port's tandem_dataset CLI on the trajectory fixture
+    (frames read through the prefetcher, or all up front with
+    ``preload``); its ATE against the GT poses, the launches of each kernel
+    in the run and, with ``count_syncs``, the host reads (synchronizing
+    CUDA calls, by torch's sync debug mode)."""
     import warnings
 
     import torch
@@ -2138,6 +2173,8 @@ def _slam_run(dev, out_dir: Path, mvsnet: bool,
             "dr_timing=1"]
     if mvsnet:
         argv.append(f"mvsnet_folder={UNIT}")
+    if preload:
+        argv.append("preload=1")
     ops = (_system_terms, trace_points, _calc_res_gs, _corner_grids)
     for fn in ops:
         fn.calls = 0
@@ -2285,7 +2322,9 @@ def phase_slam(dev) -> dict:
     must associate >= SLAM_MIN_FRAMES frames with ATE (Sim3) under
     SLAM_ATE_BOUND; the full runs must call the backend, write a non-empty
     mesh.obj, launch K1's filter, bilinear_sample, track_lm and
-    track_reduce inside the loop, and give the same result.txt sha256."""
+    track_reduce inside the loop, and give the same result.txt sha256: the
+    first reads its frames through the prefetcher, the second with
+    preload=1."""
     import shutil
     import tempfile
 
@@ -2293,12 +2332,13 @@ def phase_slam(dev) -> dict:
     work = Path(tempfile.mkdtemp(prefix="slam_"))
     runs = {}
     try:
-        for tag, mvs, syncs in (("vo", False, False), ("full", True, True),
-                                ("full_again", True, False)):
-            runs[tag] = r = _slam_run(dev, work / tag, mvs, count_syncs=syncs)
-            res, timer = r["res"], r["res"]["timer"]
-            split = {k: (len(v), round(float(np.mean(v)), 3))
-                     for k, v in sorted(timer.intervals.items())}
+        for tag, mvs, syncs, preload in (
+                ("vo", False, False, False), ("full", True, True, False),
+                ("full_again", True, False, True)):
+            runs[tag] = r = _slam_run(dev, work / tag, mvs, count_syncs=syncs,
+                                      preload=preload)
+            res = r["res"]
+            split = _timer_split(res["timer"])
             nf = res["frames"]
             log(f"[slam {tag}] {card_label_once()} frames {nf}, "
                 f"{res['seconds']:.3f} s, FPS {nf / res['seconds']:.3f}, "
@@ -2341,10 +2381,11 @@ def phase_slam(dev) -> dict:
             b = (work / "full_again" / "result.txt").read_text().splitlines()
             frame = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
                          min(len(a), len(b)))
-            raise AssertionError("slam: a second full run gives another "
-                                 "result.txt; first differing " +
+            raise AssertionError("slam: a second full run (preload=1) gives "
+                                 "another result.txt; first differing " +
                                  _first_differing_op(dev, work, frame))
-        log("[slam] the two full runs give the same result.txt sha256")
+        log("[slam] the two full runs (the prefetcher, then preload=1) give "
+            "the same result.txt sha256")
         full = runs["full"]["res"]
         times = _slam_op_times(dev, full["fs"], full["backend"])
         log(f"[slam] torch-op hot spots, CUDA events ms a call on the full "
@@ -2355,6 +2396,275 @@ def phase_slam(dev) -> dict:
     return {"slam_vo": runs["vo"]["counts"],
             "slam_full": runs["full"]["counts"],
             "slam_full_again": runs["full_again"]["counts"]}
+
+
+def _runtime_frames(n: int, H: int, W: int):
+    """A jax-free copy of bench_runtime.make_frames: the textured plane
+    sequence at full resolution, uint8 grey, with its fx, cx, cy."""
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                       np.arange(H, dtype=np.float64))
+    fx = 0.6 * W
+    cx, cy = (W - 1) / 2, (H - 1) / 2
+    frames = []
+    for i in range(n):
+        tx = 0.015 * i
+        x = (u - cx) / fx * 2.0 + tx
+        y = (v - cy) / fx * 2.0
+        img = (120 + 45 * np.sin(17 * x) * np.cos(13 * y)
+               + 30 * np.sin(41 * x + 1) + 25 * np.cos(33 * y)
+               + 15 * np.sin(77 * x * y))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames, fx, cx, cy
+
+
+def _png_filtered(img: np.ndarray) -> bytes:
+    """An 8-bit grey or RGB image as PNG bytes whose rows cycle through the
+    Paeth, Sub, Up and Average filters (data/replica.write_png writes only
+    unfiltered rows), so a decoder does the work of a real file."""
+    import struct
+    import zlib
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    cur = img.reshape(h, -1).astype(np.int32)
+    up = np.vstack([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.hstack([np.zeros_like(cur[:, :bpp]), cur[:, :-bpp]])
+    ul = np.hstack([np.zeros_like(up[:, :bpp]), up[:, :-bpp]])
+    pa, pb, pc = np.abs(up - ul), np.abs(left - ul), np.abs(left + up - 2 * ul)
+    preds = {4: np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, ul)),
+             1: left, 2: up, 3: (left + up) >> 1}
+    ftype = np.array([4, 1, 2, 3], np.uint8)[np.arange(h) % 4]
+    pred = np.empty_like(cur)
+    for f, p in preds.items():
+        pred[ftype == f] = p[ftype == f]
+    raw = np.hstack([ftype[:, None], ((cur - pred) & 0xFF).astype(np.uint8)])
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    hdr = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", hdr)
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
+
+
+def write_runtime_sequence(root: Path, n: int = RUNTIME_FRAMES,
+                           H: int = 480, W: int = 640) -> dict:
+    """The runtime phase's sequence on disk: images/%06d.png (RGB, the
+    grey replicated, filtered rows), camera.txt and gt_tum.txt (the camera
+    at x = 0.015 i, stamps i / 30 as the reader gives without times.txt)."""
+    from tandem_tpu_torch.pipeline.io import write_result_tum
+    frames, fx, cx, cy = _runtime_frames(n, H, W)
+    (root / "images").mkdir(parents=True)
+    for i, g in enumerate(frames):
+        (root / "images" / f"{i:06d}.png").write_bytes(
+            _png_filtered(np.repeat(g[..., None], 3, -1)))
+    (root / "camera.txt").write_text(f"Pinhole {fx} {fx} {cx} {cy} 0\n"
+                                     f"{W} {H}\n")
+    poses = []
+    for i in range(n):
+        c2w = np.eye(4)
+        c2w[0, 3] = 0.015 * i
+        poses.append(c2w)
+    write_result_tum(str(root / "gt_tum.txt"), [i / 30.0 for i in range(n)],
+                     poses)
+    return {"frames": frames, "fx": fx}
+
+
+def _timer_split(timer) -> dict:
+    return {k: (len(v), round(float(np.mean(v)), 3))
+            for k, v in sorted(timer.intervals.items())}
+
+
+def _ate_cli(est: Path, gt: Path) -> dict:
+    """The port's tandem_ate --scale: its printed lines and its result."""
+    import contextlib
+    import io
+
+    from tandem_tpu_torch.cli import tandem_ate
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = tandem_ate.main(tandem_ate.parser.parse_args(
+            ["--est", str(est), "--gt", str(gt), "--scale"]))
+    return {"lines": buf.getvalue().strip().splitlines(), **res}
+
+
+def phase_runtime_640(dev) -> dict:
+    """tandem_dataset preset=runtime (preload=1, dense tracking, no mesh)
+    with the trained abl04 unit (bf16, V = 7) on bench_runtime.py's 60-frame
+    640x480 sequence, written as filtered PNGs: frames, seconds and FPS
+    against the 21 FPS bar, the Timer split with read_frame (the loop's
+    wait for a decoded frame), keyframes, backend calls and the Sim3 ATE of
+    the port's tandem_ate against the GT trajectory. At least
+    RUNTIME_MIN_POSES poses, not lost, the backend called, and K1's filter,
+    bilinear_sample, track_lm and track_reduce launched."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_dataset
+    work = Path(tempfile.mkdtemp(prefix="runtime_"))
+    try:
+        t0 = time.perf_counter()
+        write_runtime_sequence(work)
+        t_write = time.perf_counter() - t0
+        argv = ["preset=runtime", f"files={work / 'images'}",
+                f"calib={work / 'camera.txt'}",
+                f"result_folder={work / 'out'}", f"mvsnet_folder={UNIT}",
+                "dr_timing=1"]
+        torch.cuda.synchronize()
+        reset_counts()
+        calls0 = edge_calls()
+        t0 = time.perf_counter()
+        res = tandem_dataset.main(argv, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        fs, backend, nf = res["fs"], res["backend"], res["frames"]
+        label = card_label_once()
+        log(f"[runtime 640x480] {label} preset=runtime, trained abl04 bf16 "
+            f"V=7: frames {nf}, {res['seconds']:.3f} s in the loop, FPS "
+            f"{nf / res['seconds']:.3f} against the {RUNTIME_FPS_BAR} FPS "
+            f"bar; the CLI call {wall:.3f} s (preload, boot self-check and "
+            f"results included); the sequence written in {t_write:.3f} s")
+        log(f"[runtime 640x480] {label} Timer (count, mean ms, host clock): "
+            f"{_timer_split(res['timer'])}")
+        ate = _ate_cli(work / "out" / "result.txt", work / "gt_tum.txt")
+        log(f"[runtime 640x480] {label} keyframes {len(fs.keyframes)}, "
+            f"backend calls {backend.call_num} ({backend.last_fuse}), "
+            f"dropped {fs.n_dropped_kf}, retry ladder {fs.n_retracks}; "
+            f"tandem_ate --scale: {' | '.join(ate['lines'])}; launches "
+            f"{counts}; " + require_edge_filter(
+                "runtime 640x480", counts["edge_kth"],
+                edge_calls() - calls0, 1))
+        n_poses = len((work / "out" / "result.txt").read_text().splitlines())
+        if n_poses < RUNTIME_MIN_POSES or fs.is_lost:
+            raise AssertionError(f"runtime 640x480: {n_poses} poses, lost "
+                                 f"{fs.is_lost}")
+        if backend.call_num < 1:
+            raise AssertionError("runtime 640x480: the backend was never "
+                                 "called")
+        require_launched("runtime 640x480", counts,
+                         ("bilinear_sample", "track_lm", "track_reduce"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _decode_ms(fn, data: bytes, reps: int) -> float:
+    fn(data)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(data)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_decode():
+    """The C decoder (native_bridge.decode_png_native) against the plain
+    Python one (data/replica.decode_png) on the card host's CPU: bit-equal
+    on the fixture's first frame (256x192) and on one 640x480 frame of the
+    runtime sequence (rows Paeth, Sub, Up and Average); both times."""
+    from tandem_tpu_torch.data.replica import decode_png
+    from tandem_tpu_torch.native_bridge import decode_png_native
+    g = _runtime_frames(1, 480, 640)[0][0]
+    cases = {"replica_traj 000000.png 256x192":
+             (FIXTURE / "images" / "000000.png").read_bytes(),
+             "runtime 640x480 RGB": _png_filtered(
+                 np.repeat(g[..., None], 3, -1))}
+    for name, data in cases.items():
+        a, b = decode_png_native(data), decode_png(data)
+        if not (a.dtype == b.dtype and np.array_equal(a, b)):
+            raise AssertionError(f"decode: {name}: the C decoder differs")
+        c_ms = _decode_ms(decode_png_native, data, 20)
+        py_ms = _decode_ms(decode_png, data, 2)
+        log(f"[decode] {card_label_once()} {name} ({len(data)} bytes): C "
+            f"{c_ms:.3f} ms, Python {py_ms:.3f} ms a frame (host clock, "
+            f"the card host's CPU), bit-equal")
+
+
+def phase_demo(dev) -> dict:
+    """tandem_demo replay= record= over the fixture's first DEMO_FRAMES
+    frames with the trained unit, the recorded folder (camera.txt,
+    times.txt, an image a frame), and that folder replayed through
+    tandem_dataset with log_stuff, debug_save_depth_images, save_dr_video
+    and viewer3d: the same poses as the demo's (poses_dso.txt sha256 and
+    result.txt's pose columns; the timestamps pass through times.txt's six
+    decimals) and every output directory non-empty."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_dataset, tandem_demo
+    work = Path(tempfile.mkdtemp(prefix="demo_"))
+    try:
+        src = work / "replay"
+        src.mkdir()
+        for i in range(DEMO_FRAMES):
+            shutil.copy(FIXTURE / "images" / f"{i:06d}.png", src)
+        rec, out = work / "rec", work / "demo_out"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = tandem_demo.main([f"replay={src}",
+                                f"calib={FIXTURE / 'camera_dso.txt'}",
+                                f"record={rec}", f"result_folder={out}",
+                                f"mvsnet_folder={UNIT}", "demo_secs=600"],
+                               device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        nf = res["frames"]
+        times = (rec / "times.txt").read_text().splitlines()
+        images = sorted(os.listdir(rec / "images"))
+        log(f"[demo] {card_label_once()} tandem_demo replay+record: {nf} "
+            f"frames in {wall:.3f} s ({nf / wall:.3f} FPS, the recorder's "
+            f"writer thread included), keyframes "
+            f"{len(res['fs'].keyframes)}, backend calls "
+            f"{res['backend'].call_num}; recorded {len(images)} images, "
+            f"{len(times)} times; launches {counts}")
+        if not (nf == DEMO_FRAMES == len(images) == len(times)
+                and (rec / "camera.txt").exists()):
+            raise AssertionError(f"demo: {nf} frames, {len(images)} images, "
+                                 f"{len(times)} times")
+        require_launched("demo", counts, ("track_lm", "track_reduce"))
+        replay = work / "replay_out"
+        torch.cuda.synchronize()
+        reset_counts()
+        tandem_dataset.main(
+            ["preset=dataset", f"files={rec / 'images'}",
+             f"calib={rec / 'camera.txt'}", f"result_folder={replay}",
+             f"mvsnet_folder={UNIT}", "desired_immature_density=512",
+             "log_stuff=1", "debug_save_depth_images=1", "save_dr_video=1",
+             "viewer3d=1"], device=dev)
+        torch.cuda.synchronize()
+        counts_replay = read_counts()
+        sha = [hashlib.sha256((d / "poses_dso.txt").read_bytes()).hexdigest()
+               for d in (out, replay)]
+        cols = [[ln.split()[1:] for ln in (d / "result.txt").read_text()
+                 .splitlines()] for d in (out, replay)]
+        dirs = {d: len(os.listdir(replay / d)) if (replay / d).is_dir()
+                else 0 for d in ("logs", "depths", "dr_video", "view3d")}
+        log(f"[demo] {card_label_once()} replay of the recording through "
+            f"tandem_dataset: "
+            f"poses_dso.txt sha256 {sha[1]} (the demo's {sha[0]}); outputs "
+            f"{dirs}, view3d_final.png "
+            f"{(replay / 'view3d_final.png').stat().st_size} bytes; "
+            f"launches {counts_replay}")
+        if sha[0] != sha[1] or cols[0] != cols[1]:
+            raise AssertionError("demo: the recording's replay gives other "
+                                 "poses than the demo")
+        if min(dirs.values()) == 0:
+            raise AssertionError(f"demo: an empty output directory: {dirs}")
+        require_launched("demo replay", counts_replay,
+                         ("bilinear_sample", "track_lm", "track_reduce"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"demo": counts, "demo_replay": counts_replay}
 
 
 def _profiled_events(fn):
@@ -3173,6 +3483,12 @@ def main() -> int:
     lap("track mvs")
     paths.update(phase_slam(dev))
     lap("slam")
+    paths["runtime_640x480"] = phase_runtime_640(dev)
+    lap("runtime 640x480")
+    phase_decode()
+    lap("decode")
+    paths.update(phase_demo(dev))
+    lap("demo")
     paths.update(phase_rgbd(dev))
     lap("rgbd")
     paths["dr_debug"] = phase_dr_debug(dev)

@@ -6,7 +6,10 @@ BA, CVA-MVSNet depth (bfloat16), TSDF fusion with the rendered depth fed
 back to the tracker, and the mesh. Writes result.txt / poses_dso.txt /
 keyframes_dso.txt / dso_optimization_windows.txt, mesh.obj with a unit and
 dr_times.txt with dr_timing=1 (main_tandem_pangolin.cpp's output
-contract), and prints the TANDEM TIMING block.
+contract), and prints the TANDEM TIMING block. Frames are decoded by the
+host library's C decoder: read ahead on a worker thread, or all up front
+with ``preload=1`` (``preset=runtime``); the Timer's ``read_frame`` is the
+loop's wait for them.
 
 Usage:
   python -m tandem_tpu_torch.cli.tandem_dataset preset=dataset \\
@@ -17,10 +20,12 @@ It runs on the card; ``device=cpu`` (this port's own key, not a DSO
 setting) runs it on the CPU. ``rgbd=1`` means what it means in the JAX
 CLI, which reads no depth: monocular tracking with the Student-t weights
 (``track_frame(..., tdist=True)``); the dvo RGB-D tracker runs through the
-API (``FullSystem.add_active_frame(..., depth=)``). Not ported, each
-raising NotImplementedError: log_stuff=1, debug_save_depth_images=1,
-viewer3d=1, save_dr_video=1, preload=1 (so preset=runtime), and a unit
-that holds only model.stablehlo.
+API (``FullSystem.add_active_frame(..., depth=)``). ``log_stuff=1``
+writes result_folder/logs, ``debug_save_depth_images=1`` the depth dumps,
+``save_dr_video=1`` the keyframe panels under result_folder/dr_video (with
+a unit) and ``viewer3d=1`` the headless 3D viewer's PNGs under
+result_folder/view3d and view3d_final.png. A unit that holds only
+model.stablehlo is not ported (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -71,43 +76,28 @@ def playback_gate(target: float, since_start: float, frame_parity: int):
     return "ok", 0.0
 
 
-def _not_ported(s):
-    for flag, item in (("log_stuff", "Queue 1, debug logging "
-                                     "(utils/dso_log.py)"),
-                       ("debug_save_depth_images", "Queue 1, debug logging "
-                                                   "(utils/dso_log.py)"),
-                       ("viewer3d", "Queue 1, viewer and outputs "
-                                    "(pipeline/viewer.py)"),
-                       ("save_dr_video", "Queue 1, viewer and outputs "
-                                         "(pipeline/output_wrapper.py)"),
-                       ("preload", "Queue 1, native bridge "
-                                   "(native_bridge.py)")):
-        if getattr(s, flag):
-            raise NotImplementedError(f"{flag}=1 is not ported: ROADMAP "
-                                      f"{item}")
-
-
-def _split_device(argv):
-    """Take this port's ``device=`` key out of the DSO argument chain."""
-    rest, device = [], None
+def split_port_keys(argv, keys=("device",)):
+    """Take this port's own ``key=value`` arguments (not DSO settings) out
+    of the argument chain: (the rest, {key: value})."""
+    rest, found = [], {}
     for a in argv:
-        if a.startswith("device="):
-            device = a.split("=", 1)[1]
+        key = a.split("=", 1)[0]
+        if "=" in a and key in keys:
+            found[key] = a.split("=", 1)[1]
         else:
             rest.append(a)
-    return rest, device
+    return rest, found
 
 
 def main(argv=None, device=None):
     """:param device: the card unless given (or ``device=`` in argv).
     :return: dict with frames, seconds, the FullSystem, the backend and
         the Timer."""
-    argv, dev_arg = _split_device(argv if argv is not None
-                                  else sys.argv[1:])
+    argv, port_keys = split_port_keys(argv if argv is not None
+                                      else sys.argv[1:])
     s = parse_args(argv)
     assert s.files, "files=IMG_DIR required"
     assert s.calib, "calib=CAMERA.txt required"
-    _not_ported(s)
 
     import torch
 
@@ -120,10 +110,12 @@ def main(argv=None, device=None):
     from ..pipeline.full_system import (FullSystem, make_full_system_options,
                                         resolve_device)
     from ..pipeline.mvsnet_runner import MvsnetRunner
+    from ..pipeline.output_wrapper import PanelOutputWrapper
+    from ..pipeline.viewer import Viewer3DWrapper
     from ..utils.timer import Timer
     from .golden import GOLDEN_TOL, load_model_config, verify_golden
 
-    dev = resolve_device(device or dev_arg)
+    dev = resolve_device(device or port_keys.get("device"))
     fx, fy, cx, cy, W, H = read_calib(s.calib)
     K_mat = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
     timer = Timer(enabled=bool(s.dr_timing))
@@ -150,10 +142,24 @@ def main(argv=None, device=None):
         backend = TandemBackend(runner, TsdfConfig(), K_mat, H, W,
                                 mesh_extraction_freq=s.mesh_extraction_freq,
                                 timer=timer)
+        if s.save_dr_video:
+            backend.output_wrappers.append(PanelOutputWrapper(
+                os.path.join(s.result_folder, "dr_video")))
+
+    outputs = []
+    viewer = None
+    if s.viewer3d:
+        # PangolinDSOViewer substitute, headless: PNG recordings.
+        viewer = Viewer3DWrapper(
+            K=(fx, fy, cx, cy),
+            out_dir=os.path.join(s.result_folder, "view3d"))
+        outputs.append(viewer)
+        if backend is not None:
+            backend.output_wrappers.append(viewer)
 
     opts = make_full_system_options(s)
     fs = FullSystem(fx, fy, cx, cy, H, W, options=opts, backend=backend,
-                    timer=timer, device=dev)
+                    timer=timer, outputs=outputs, device=dev)
 
     with open(s.calib) as f:
         clines = [ln.strip() for ln in f if ln.strip()]
@@ -161,7 +167,8 @@ def main(argv=None, device=None):
                        or clines[0].split()[0].lower() != "pinhole")
     reader = ImageFolderReader(
         s.files, calib=s.calib if needs_undistort else None,
-        gamma=s.gamma or None, vignette=s.vignette or None)
+        gamma=s.gamma or None, vignette=s.vignette or None,
+        preload=s.preload)
 
     end = min(s.end, len(reader)) if s.end >= 0 else len(reader)
     indices = list(range(s.start, end))
@@ -208,6 +215,7 @@ def main(argv=None, device=None):
             print(f"LOST at frame {i}")
             break
     elapsed = time.time() - t_start
+    reader.close()
 
     out = s.result_folder
     os.makedirs(out, exist_ok=True)
@@ -217,6 +225,10 @@ def main(argv=None, device=None):
         save_obj(os.path.join(out, "mesh.obj"), verts, faces, cols)
     if s.dr_timing:
         timer.write_to_file(os.path.join(out, "dr_times.txt"))
+    if viewer is not None:
+        # Final scene snapshot (viewer->join, main:267).
+        viewer.snapshot(os.path.join(out, "view3d_final.png"))
+        viewer.join()
 
     n = len(fs.all_poses)
     # End-of-run FPS block (main_tandem_pangolin.cpp:276-283)

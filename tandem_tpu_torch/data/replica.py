@@ -8,7 +8,9 @@ MVS training/eval dataset over such scenes.
     scene/tuples_dso_optimization_windows.txt  "n id_1 .. id_n scale"
 
 The machine with the card has no image library, so PNG files are decoded
-here (zlib + the five PNG row filters) and written by ``write_png``;
+here (zlib + the five PNG row filters: ``decode_png``, the plain version of
+the C decoder ``native_bridge.decode_png_native``, which the scene and
+dataset readers below use) and written by ``write_png``;
 ``gray`` is OpenCV's fixed-point BGR -> grey conversion, which the JAX
 package's reader uses (``tandem_tpu/data/reader.py``), and
 ``resize_nearest`` is ``cv2.resize``'s INTER_NEAREST.
@@ -33,8 +35,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..core.camera import cam_intrinsics, cam_resize, cam_stack
-
-_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # PNG colour type -> samples per pixel
+from ..native_bridge import read_png_native
+from .png_format import png_layout
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -79,27 +81,9 @@ def read_png(path) -> np.ndarray:
 
 def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """``read_png`` of the file's bytes."""
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        length, = struct.unpack(">I", data[pos:pos + 4])
-        kind = data[pos + 4:pos + 8]
-        body = data[pos + 8:pos + 8 + length]
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    w, h, depth, ctype, _, _, interlace = hdr
-    if depth not in (8, 16) or ctype not in _CHANNELS or interlace:
-        raise ValueError(f"{path}: unsupported PNG (bit depth {depth}, "
-                         f"colour type {ctype}, interlace {interlace})")
-    ch = _CHANNELS[ctype]
+    h, w, depth, ch, compressed = png_layout(data, path)
     bpp = ch * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
+    rows = _unfilter(zlib.decompress(compressed), h, w * bpp, bpp)
     if depth == 16:
         img = rows.reshape(h, w * ch, 2).astype(np.uint16)
         img = (img[..., 0] << 8) | img[..., 1]
@@ -174,7 +158,7 @@ class ReplicaScene:
     def bgr(self, i: int) -> np.ndarray:
         """(H, W, 3) uint8 BGR, as cv2.imread returns it."""
         return np.ascontiguousarray(
-            read_png(self.dir / "images" / f"{i:06d}.png")[..., ::-1])
+            read_png_native(self.dir / "images" / f"{i:06d}.png")[..., ::-1])
 
     def gray(self, i: int) -> np.ndarray:
         """(H, W) float32 grey intensity in [0, 255]."""
@@ -182,7 +166,7 @@ class ReplicaScene:
 
     def depth(self, i: int) -> np.ndarray:
         """(H, W) float32 metres, 0 = invalid."""
-        raw = read_png(self.dir / "depths" / f"{i:06d}.png")
+        raw = read_png_native(self.dir / "depths" / f"{i:06d}.png")
         return (raw.astype(np.float64) * self.depth_scale).astype(np.float32)
 
     def c2w(self, i: int) -> np.ndarray:
@@ -337,7 +321,7 @@ class MVSScene:
         else:
             raise ValueError(f"{fname}: JPEG images are not supported (the "
                              "port decodes PNG only)")
-        img = read_png(fname)
+        img = read_png_native(fname)
         if img.ndim != 3 or img.shape[2] != 3:
             raise ValueError(f"{fname}: want an RGB image, got {img.shape}")
         img = _resize(img, self.height, self.width)
@@ -345,7 +329,7 @@ class MVSScene:
 
     def read_depth(self, frame_index: int) -> np.ndarray:
         fname = join(self.scene_dir, "depths", f"{frame_index:06d}.png")
-        depth = _resize(read_png(fname), self.height, self.width)
+        depth = _resize(read_png_native(fname), self.height, self.width)
         return self.depth_scale * depth.astype(self.dtype)
 
     # --- dataset protocol -------------------------------------------------

@@ -16,6 +16,11 @@ next tracking reference splats, per axis, only the blocks whose surface can
 cross along that axis. Both culls are exact. Every ``mesh_extraction_freq``
 calls, and on ``extract_mesh_now``, the global mesh is extracted
 (``mapping/mesh.py``).
+
+``output_wrappers`` (Output3DWrapper sinks, tandem_backend.cpp's
+pushDr* calls) get the periodic mesh and, for each fused keyframe, its
+BGR image and its MVS depth and confidence, read to the host once a call
+only when a sink is attached.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ class TandemBackend:
         self._n_drop_seen = 0     # pool-full allocation drops already handled
         self._pool_warned = False
         self.last_fuse: dict = {}  # counts of the latest fusion
+        self.output_wrappers = []
 
     def ready(self) -> bool:
         """Reference Ready() parity (tandem_backend.cpp:285-287): True when
@@ -92,9 +98,18 @@ class TandemBackend:
         tandem_backend.cpp:137-217): finish call N-1, then launch call N."""
         tid = self.timer.start_timing("backend_call")
         if self._prev is not None:
-            self._fuse_previous(next_ref_c2w)
+            res = self._fuse_previous(next_ref_c2w)
             if self.mesh_freq > 0 and self.call_num % self.mesh_freq == 0:
                 self.extract_mesh_now()
+                for ow in self.output_wrappers:
+                    ow.push_dr_mesh(*self.last_mesh)
+            if self.output_wrappers:
+                depth, conf = torch.stack(
+                    [res["depth"].float(), res["confidence"].float()]
+                ).cpu().numpy()                      # one host read
+                for ow in self.output_wrappers:
+                    ow.push_dr_kf_image(self._prev["ref_bgr"])
+                    ow.push_dr_kf_depth(depth, conf)
 
         ref_index = self.runner.view_num - 2
         self.runner.call_async(bgrs, cam_to_worlds, self.K, depth_min,
@@ -162,6 +177,7 @@ class TandemBackend:
                           "culled_integrate": culled,
                           "axis_counts": ax_counts}
         self.depth_map.write(rdepth, np.asarray(next_ref_c2w))
+        return res
 
     def stats(self) -> dict:
         """Volume occupancy counters (host integers — no device sync)."""

@@ -27,8 +27,14 @@ pose (``calc_res_eval``, K6), with the Student-t ``track_frame`` as the
 fallback; keyframes seed points and the tracking reference from their
 depth. The dvo path adds no host read: its ``n`` shares the frame's read.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item):
-``log_stuff`` and ``debug_save_depth_images``, output wrappers.
+Observability (the JAX package's hooks, at the same places):
+``log_stuff`` writes the reference's logs/*.txt (``utils/dso_log.py``: the
+coarse-tracking line a frame, the nums and eigen lines a keyframe from
+``tracking/ba.ba_log_system``, the lifetimes at ``write_results``);
+``debug_save_depth_images`` dumps the projected BA depth of every tracked
+non-keyframe and every new tracking reference; ``outputs`` (Output3DWrapper
+sinks) get each pose and the keyframe list. Each costs host reads only
+when it is on: with none of them a frame keeps its one packed read.
 """
 
 from __future__ import annotations
@@ -41,8 +47,10 @@ import numpy as np
 import torch
 
 from ..models.cva_mvsnet import pin_f32_precision
-from ..tracking.ba import (BAState, _bilinear, ba_iterate, create_ba_state,
-                           marginalize_frame, pattern, remove_outliers)
+from ..core.se3 import se3_log
+from ..tracking.ba import (BAState, _bilinear, ba_iterate, ba_log_system,
+                           create_ba_state, marginalize_frame, pattern,
+                           remove_outliers)
 from ..tracking.coarse_tracker import (calc_res_eval, make_tracker_ref,
                                        rotation_perturbations,
                                        splat_depth_to_ref, track_frame,
@@ -53,6 +61,7 @@ from ..tracking.immature import (ImmaturePoints, activate_points,
 from ..tracking.initializer import initializer_track, make_initializer
 from ..tracking.point_selection import select_pixels
 from ..utils.consts import const, upload
+from ..utils.dso_log import DsoLogger, save_depth_png
 from ..utils.timer import Timer
 from .io import (write_optimization_windows, write_poses_mat,
                  write_result_tum)
@@ -174,7 +183,7 @@ class FullSystemOptions:
     # linearizeOperation (playbackSpeed == 0): a busy backend is waited
     # for; real-time mode drops the keyframe (FullSystem.cpp:1144-1151).
     linearize: bool = True
-    # Debug observability (not ported).
+    # Debug observability (utils/dso_log.py).
     log_stuff: bool = False
     log_dir: str = "logs"
     debug_save_depth_images: bool = False
@@ -251,14 +260,7 @@ class FullSystem:
                  options: FullSystemOptions = None, backend=None,
                  timer: Timer = None, outputs=None, device=None):
         self.opt = options or FullSystemOptions()
-        if self.opt.log_stuff or self.opt.debug_save_depth_images:
-            raise NotImplementedError(
-                "log_stuff / debug_save_depth_images (utils/dso_log.py) are "
-                "not ported: ROADMAP Queue 1, debug logging")
-        if outputs:
-            raise NotImplementedError(
-                "output wrappers (pipeline/viewer.py, output_wrapper.py) "
-                "are not ported: ROADMAP Queue 1, viewer and outputs")
+        self.outputs = outputs or []  # Output3DWrapper sinks
         self.device = resolve_device(device)
         # BA's products must be true f32 (no TF32) and cuDNN deterministic;
         # a VO-only run builds no CvaMVSNet, which would otherwise pin it.
@@ -305,6 +307,13 @@ class FullSystem:
         self.n_retracks = 0     # retry ladder firings
         self.windows: List[List[int]] = []
         self._lifetimes: dict = {}
+        # setting_logStuff observability (FullSystem.cpp:78-121) and the
+        # cumulative statistics_* counters of printLogLine.
+        self.logger = (DsoLogger(self.opt.log_dir, self.opt.max_keyframes)
+                       if self.opt.log_stuff else None)
+        self._stat_created = 0
+        self._stat_activated = 0
+        self._stat_dropped = 0
 
     def _tensor(self, x):
         return upload(x, self.device)
@@ -422,7 +431,22 @@ class FullSystem:
 
         if self._first_coarse_rmse is None:
             self._first_coarse_rmse = energy
-        if self._keyframe_decision(out["flow"], out, energy, timestamp):
+        need_kf = self._keyframe_decision(out["flow"], out, energy, timestamp)
+        if self.logger is not None:
+            # trackNewCoarse logging (FullSystem.cpp:635-643): id, ts,
+            # exposure, camToWorld.log(), aff a/b, achieved residual, tries.
+            xi = se3_log(torch.from_numpy(c2w.astype(np.float32))).numpy()
+            self.logger.log_coarse_tracking(
+                frame_id, timestamp, 1.0, xi, float(out["aff"][0]),
+                float(out["aff"][1]), energy, 2 if bad else 1)
+        if self.opt.debug_save_depth_images and not need_kf:
+            # saveNKFDepthMap (CoarseTracker.cpp:1136-1215, from
+            # makeNonKeyFrame FullSystem.cpp:1281): the active points
+            # projected into the newly tracked frame.
+            idep, wgt = _fetch(*_project_ba_points(
+                self.ba_state, self._tensor(c2w), self.K, self.H, self.W))
+            save_depth_png(self.opt.depth_save_folder, frame_id, idep, wgt)
+        if need_kf:
             self._make_keyframe(img, frame_id, timestamp, c2w, bgr)
 
     @staticmethod
@@ -562,6 +586,8 @@ class FullSystem:
         self.all_poses.append(self.last_c2w.copy())
         self.all_ids.append(frame_id)
         self.all_ts.append(timestamp)
+        for ow in self.outputs:
+            ow.publish_cam_pose(frame_id, self.last_c2w)
 
     def _keyframe_decision(self, flow, out, energy: float,
                            timestamp: float) -> bool:
@@ -700,6 +726,8 @@ class FullSystem:
         self.timer.end_timing("kf_flag", t_flag)
 
         t_act = self.timer.start_timing("kf_activate")
+        n_valid_pre_act = (int(self.ba_state.pt_valid.sum())
+                           if self.logger is not None else 0)
         if not from_init:
             # Free the slots of points that left the window's view before
             # activating new ones (documented deviation, fixed pool).
@@ -730,6 +758,8 @@ class FullSystem:
         self.ba_state, _ = ba_iterate(
             self.ba_state, self.slot_images, self.K,
             iters=self.opt.ba_iters, newest_slot=kf.slot)
+        n_valid_post_ba = (int(self.ba_state.pt_valid.sum())
+                           if self.logger is not None else 0)
         self.ba_state = remove_outliers(self.ba_state, self.slot_images,
                                         self.K)
         poses = _fetch(self.ba_state.poses)[0].astype(np.float32)
@@ -752,6 +782,15 @@ class FullSystem:
         self.timer.end_timing("kf_select", t_sel)
         self.windows.append(sorted(k.frame_id for k in self.kf_of_slot
                                    if k is not None))
+
+        if self.logger is not None:
+            self._stat_created += kf.n_immature
+            n_post = int(self.ba_state.pt_valid.sum())
+            self._stat_activated += max(n_valid_post_ba - n_valid_pre_act, 0)
+            self._stat_dropped += max(n_valid_post_ba - n_post, 0)
+            self._log_keyframe_stats(kf)
+        for ow in self.outputs:
+            ow.publish_keyframes(self.keyframes)
 
         if self.backend is not None:
             t_del = self.timer.start_timing("kf_deliver")
@@ -807,6 +846,12 @@ class FullSystem:
         ref_c2w = kf.c2w_on(self.device)
         idepth0, weight0 = _project_ba_points(self.ba_state, ref_c2w, self.K,
                                               self.H, self.W)
+        if self.opt.debug_save_depth_images:
+            # saveKFDepthMap right after the new tracking reference is set
+            # (FullSystem.cpp:1386, CoarseTracker.cpp:1073-1135).
+            idep, wgt = _fetch(idepth0, weight0)
+            save_depth_png(self.opt.depth_save_folder, kf.frame_id, idep,
+                           wgt)
         dense_id = dense_w = None
         if kf.sensor_depth is not None:
             # RGB-D: the dense injection is the sensor depth on the
@@ -848,6 +893,30 @@ class FullSystem:
                                            kf.c2w_on(self.device), tgt, img,
                                            self.K)
 
+    def _log_keyframe_stats(self, kf: Keyframe):
+        """printLogLine + printEigenValLine per keyframe
+        (FullSystem.cpp:1664-1781): numsLog counters and the eigen spectra,
+        diagonal, variances and nullspace quadratic forms of the
+        Schur-reduced window system (lastHS/lastbS), in one host read."""
+        H_log, b_log, ns, n_res, aff = _fetch(
+            *ba_log_system(self.ba_state, self.slot_images, self.K),
+            self.ba_state.aff)
+        active = sorted((k for k in self.kf_of_slot if k is not None),
+                        key=lambda k: k.kf_id)
+        # Calib + active-slot rows in window order (DSO's lastHS spans only
+        # live frames; this system carries every slot).
+        idx = np.asarray(list(range(4)) + [4 + k.slot * 8 + j
+                                           for k in active for j in range(8)])
+        rmse = self._last_energy if self._last_energy is not None else 0.0
+        self.logger.log_nums(
+            kf.frame_id, rmse, self._stat_created, self._stat_activated,
+            self._stat_dropped, self.opt.ba_iters, int(n_res),
+            float(aff[kf.slot, 0]), float(aff[kf.slot, 1]),
+            active[-1].frame_id - active[0].frame_id, len(active))
+        self.logger.log_eigenvalues(
+            kf.frame_id, H_log[np.ix_(idx, idx)], b_log[idx], ns[idx],
+            len(active))
+
     # ------------------------------------------------------------------
     def write_results(self, out_dir: str):
         os.makedirs(out_dir, exist_ok=True)
@@ -861,6 +930,12 @@ class FullSystem:
         write_optimization_windows(
             os.path.join(out_dir, "dso_optimization_windows.txt"),
             self.windows)
+        if self.logger is not None:
+            # printFrameLifetimes runs at shutdown (FullSystem dtor path)
+            self.logger.log_lifetimes(
+                [(fid, rec[0], 0, 0, rec[1])
+                 for fid, rec in sorted(self._lifetimes.items())])
+            self.logger.close()
 
 
 def _abs_grad2(img):

@@ -11,7 +11,8 @@ caller's stream. On the CPU the call runs synchronously.
 
 Input packing parity (dr_mvsnet.cpp:180-250):
 - views reordered ref-first: [ref, others in original order], ref = V - 2
-- BGR uint8 -> RGB uint8 (1, V, 3, H, W) on the host, the JAX runner's
+- BGR uint8 -> RGB uint8 (1, V, 3, H, W) on the host by the host
+  library's ``bgr_pack_u8`` (``native_bridge``), the JAX runner's
   layout; uploaded as uint8 and divided by 255 on the device
 - per-stage intrinsics by naive 0.25x/0.5x scaling (core/camera.py)
 - call-order protocol asserts (dr_mvsnet.cpp:100-107,315-318).
@@ -32,6 +33,7 @@ from ..core.camera import stage_intrinsics_runtime
 from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet
 from ..models.edge_filter import filter_edges
+from ..native_bridge import bgr_pack_u8
 
 
 class MvsnetRunner:
@@ -75,10 +77,7 @@ class MvsnetRunner:
         ref_index = self.view_num - 2 if ref_index is None else ref_index
         bgrs = self.reorder_ref_first(list(bgrs), ref_index)
         poses = self.reorder_ref_first(list(cam_to_worlds), ref_index)
-        H, W = np.shape(bgrs[0])[:2]
-        image = np.empty((1, len(bgrs), 3, H, W), np.uint8)
-        for v, bgr in enumerate(bgrs):   # HWC BGR -> CHW RGB, view by view
-            image[0, v] = np.asarray(bgr, np.uint8).transpose(2, 0, 1)[::-1]
+        image = bgr_pack_u8(bgrs)[None]   # HWC BGR -> CHW RGB, in C
         Ks = tuple(k[None] for k in
                    stage_intrinsics_runtime(np.asarray(K, np.float32)))
         c2w = np.stack(poses)[None].astype(np.float32)

@@ -8,7 +8,9 @@ result.txt must have one line per frame with moving poses, and mesh.obj
 must exist with a unit. ``verify_golden`` replays
 ``exported/tandem_512x320``'s pack in f32 on the CPU within the
 reference's boot bar (GOLDEN_TOL = 1e-2 worst MAE). The argument chain is
-strict and the options the port does not carry raise.
+strict; log_stuff, debug_save_depth_images, save_dr_video and viewer3d
+write their outputs, preload=1 gives the default route's result.txt, and
+a model.stablehlo-only unit raises.
 """
 
 import os
@@ -85,10 +87,7 @@ def test_cli_vo_only(sequence, tmp_path):
 
 
 def test_cli_with_a_unit(sequence, tmp_path):
-    unit = tmp_path / "unit"
-    unit.mkdir()
-    for name in ("model_variables.pkl", "model_config.json"):
-        shutil.copy(os.path.join(UNIT, name), unit / name)
+    unit = _unit(tmp_path)
     out = tmp_path / "out"
     res = tandem_dataset.main(_argv(sequence, out, f"mvsnet_folder={unit}",
                                     "mesh_extraction_freq=2",
@@ -117,12 +116,43 @@ def test_strict_arguments(sequence, tmp_path):
         tandem_dataset.main([f"calib={sequence[1]}", "device=cpu"])
 
 
+def _unit(tmp_path):
+    unit = tmp_path / "unit"
+    unit.mkdir()
+    for name in ("model_variables.pkl", "model_config.json"):
+        shutil.copy(os.path.join(UNIT, name), unit / name)
+    return unit
+
+
 @pytest.mark.parametrize("flag", ["log_stuff=1", "viewer3d=1",
                                   "save_dr_video=1", "preload=1",
                                   "debug_save_depth_images=1"])
 def test_options_not_ported_raise(sequence, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tandem_dataset.main(_argv(sequence, tmp_path, flag, "device=cpu"))
+    """The options that raised before this port carried them now run and
+    write their outputs (save_dr_video's panels need a unit)."""
+    out = tmp_path / "out"
+    extra = (["end=12"] if flag != "save_dr_video=1" else
+             [f"mvsnet_folder={_unit(tmp_path)}", "mesh_extraction_freq=2",
+              "dr_mvsnet_view_num=3"])
+    res = tandem_dataset.main(_argv(sequence, out, flag, "device=cpu",
+                                    *extra))
+    n = res["frames"]
+    _check_result(out, n)
+    written = {"log_stuff=1": out / "logs",
+               "debug_save_depth_images=1": out / "depths",
+               "save_dr_video=1": out / "dr_video",
+               "viewer3d=1": out / "view3d"}
+    if flag in written:
+        assert written[flag].is_dir()
+    if flag == "viewer3d=1":
+        assert (out / "view3d_final.png").stat().st_size > 1000
+    elif flag == "preload=1":
+        base = tmp_path / "base"
+        tandem_dataset.main(_argv(sequence, base, "device=cpu", "end=12"))
+        assert ((base / "result.txt").read_bytes()
+                == (out / "result.txt").read_bytes())
+    else:
+        assert len(os.listdir(written[flag])) > 0, flag
 
 
 def test_stablehlo_only_unit_raises(sequence, tmp_path):

@@ -1155,3 +1155,64 @@ def test_train_step_on_card(dev, dtype, monkeypatch):
         _assert_grad_matches_plain(acc, gout, mat, depth)
     tol = 1e-3 if dtype == "float32" else 5e-2
     assert abs(losses[str(dev)] / losses["cpu"] - 1) < tol, losses
+
+
+def test_runtime_preset_on_card(dev, tmp_path):
+    """tandem_dataset preset=runtime (preload=1, dense tracking) with the
+    trained unit on the card: chip_smoke.py's synthetic 640x480 sequence,
+    24 frames. Every frame tracked, the prefetch-free route (preload) timed
+    in read_frame, keyframes made, and the backend launched K1's filter
+    and the plane-sweep sample."""
+    import os
+
+    import chip_smoke
+    from tandem_tpu_torch.cli import tandem_dataset
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample
+    from tandem_tpu_torch.ops.edge_kth import edge_filter
+    chip_smoke.write_runtime_sequence(tmp_path / "seq", n=24)
+    unit = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                        "exported", "tandem")
+    before = (edge_filter.calls, warp_sample.launches)
+    res = tandem_dataset.main(
+        ["preset=runtime", f"files={tmp_path / 'seq' / 'images'}",
+         f"calib={tmp_path / 'seq' / 'camera.txt'}",
+         f"result_folder={tmp_path / 'out'}", f"mvsnet_folder={unit}",
+         "dr_timing=1", "max_frames=4", "dr_mvsnet_view_num=3"], device=dev)
+    fs = res["fs"]
+    assert res["frames"] == 24 and not fs.is_lost
+    assert len(res["timer"].intervals["read_frame"]) == 24
+    assert res["backend"].call_num >= 1
+    assert edge_filter.calls > before[0] and warp_sample.launches > before[1]
+    assert (tmp_path / "out" / "result.txt").read_text().count("\n") == 24
+
+
+def test_demo_with_the_unit_on_card(dev, tmp_path):
+    """tandem_demo replay= record= with the trained unit on the card over
+    tests/fixtures/replica_traj's first 24 frames: the recording replays
+    through tandem_dataset to the same poses."""
+    import os
+    import shutil
+
+    from tandem_tpu_torch.cli import tandem_dataset, tandem_demo
+    repo = os.path.dirname(os.path.dirname(__file__))
+    fx = os.path.join(repo, "tests", "fixtures", "replica_traj", "scene0")
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(24):
+        shutil.copy(os.path.join(fx, "images", f"{i:06d}.png"), src)
+    unit = os.path.join(repo, "exported", "tandem")
+    res = tandem_demo.main([f"replay={src}",
+                            f"calib={os.path.join(fx, 'camera_dso.txt')}",
+                            f"record={tmp_path / 'rec'}",
+                            f"result_folder={tmp_path / 'demo'}",
+                            f"mvsnet_folder={unit}", "demo_secs=600"],
+                           device=dev)
+    assert res["frames"] == 24 and res["fs"].device.type == "cuda"
+    assert len(os.listdir(tmp_path / "rec" / "images")) == 24
+    tandem_dataset.main([f"files={tmp_path / 'rec' / 'images'}",
+                         f"calib={tmp_path / 'rec' / 'camera.txt'}",
+                         f"result_folder={tmp_path / 'replay'}",
+                         f"mvsnet_folder={unit}",
+                         "desired_immature_density=512"], device=dev)
+    assert ((tmp_path / "replay" / "poses_dso.txt").read_bytes()
+            == (tmp_path / "demo" / "poses_dso.txt").read_bytes())

@@ -134,13 +134,17 @@ def test_reference_idepth_quantile():
                     == jfs.reference_idepth_quantile(idv, frac))
 
 
-def test_not_ported_options_raise():
-    for kw in (dict(log_stuff=True),
-               dict(debug_save_depth_images=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfs.FullSystem(FX, FY, CX, CY, H, W,
-                           options=tfs.FullSystemOptions(**kw),
-                           device="cpu")
+def test_not_ported_options_raise(tmp_path):
+    """The options that raised before the port carried them build: a
+    logger with log_stuff (tests/test_torch_dso_log.py drives it), none
+    without it, and sinks are kept."""
+    fs = tfs.FullSystem(FX, FY, CX, CY, H, W, options=tfs.FullSystemOptions(
+        log_stuff=True, log_dir=str(tmp_path / "logs"),
+        debug_save_depth_images=True), outputs=["sink"], device="cpu")
+    assert fs.logger is not None and fs.outputs == ["sink"]
+    assert (tmp_path / "logs" / "numsLog.txt").exists()
+    fs.logger.close()
+    assert tfs.FullSystem(FX, FY, CX, CY, H, W, device="cpu").logger is None
 
 
 def test_default_device_is_the_card():
