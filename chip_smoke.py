@@ -5,7 +5,8 @@ coarse tracker tracking against the TSDF model, the SLAM loop (also at
 640x480 with preset=runtime), the C image decoder, tandem_demo with its
 recorder and the debug logs, sinks and 3D viewer, the sensor-depth paths
 (RGB-D tracking with dvo's dense tracker, the TSDF raycast through
-dr_debug_example), and the training half (tandem_train, tandem_eval).
+dr_debug_example), the training half (tandem_train, tandem_eval) and the
+deployable unit (tandem_export's model.pt2, served by tandem_dataset).
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
@@ -119,6 +120,22 @@ Phases, each printing its numbers before the last line:
               per stage, host reads a frame, the calls of the torch-op hot
               spots K7, K8, K11 and _corner_grids a frame or keyframe and
               their CUDA-event ms a call with a bound;
+     export   tandem_export (cli/tandem_export.main) on the card with the
+              trained abl04 unit's weights at 640x480, V = 7, into a
+              temporary directory (its own replays through model.pt2 and
+              the eager model under GOLDEN_TOL); the repo's golden pack
+              through the saved program from a fresh torch.export.load:
+              worst MAE over the 4 stage-3 outputs < GOLDEN_TOL, the
+              custom ops' kernels launched (warp_sample 18 times, the edge
+              filter once); the program's stage-3 sha256 beside the eager
+              f32 model's (the first differing op named if they differ);
+              ms a runner keyframe from the program (ExportedRunner) and
+              from the eager f32 model (MvsnetRunner), host clock, median
+              of 5; then a weightless unit (model.pt2, model_config.json
+              and the pack, exported at 256x192 from replica_traj's first
+              "val" window) serves tandem_dataset on the fixture's 64
+              frames: the boot self-check, >= SLAM_MIN_FRAMES frames, ATE
+              (Sim3) < SLAM_ATE_BOUND, beside the pkl unit's full run;
      runtime 640x480  tandem_dataset preset=runtime (preload=1) with the
               trained unit on bench_runtime.py's 60-frame synthetic
               640x480 sequence, written as PNGs with Paeth, Sub, Up and
@@ -171,8 +188,9 @@ Phases, each printing its numbers before the last line:
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
-the slices, the three tracking paths, the slam runs, the runtime run,
-the demo and its replay, the RGB-D runs, the dr_debug run, the training
+the slices, the three tracking paths, the slam runs, the export's replay
+and its weightless tandem_dataset run, the runtime run, the demo and its
+replay, the RGB-D runs, the dr_debug run, the training
 runs and the evals) and read just after it.
 The last line of stdout is the JSON result; any failed phase exits
 non-zero without it.
@@ -1416,6 +1434,210 @@ def phase_slice(runner, pack, dev, profile: Path = None) -> dict:
     return counts, backend
 
 
+def _stage3_digest(outputs) -> str:
+    from tandem_tpu_torch.utils.digest import digest
+    return digest([outputs])
+
+
+def _golden_digest(runner, pack, dev) -> str:
+    from tandem_tpu_torch.utils.digest import digest
+    return digest(_golden_forward(runner, pack, dev))
+
+
+def _first_differing_program_op(program, eager, args) -> str:
+    """Both forwards traced op by op (every aten op and custom op on the
+    card with a checksum of its output, in call order): the first op whose
+    name or output differs."""
+    from tandem_tpu_torch.experiments.determinism import _traced_run
+    import torch
+    with torch.no_grad():
+        a, b = _traced_run(program, args), _traced_run(eager, args)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return f"op {i}: program {x[0]} vs eager {y[0]}"
+    return f"no traced op differs ({len(a)} and {len(b)} ops)"
+
+
+def phase_export(dev, pkl_ate: float) -> dict:
+    """tandem_export on the card: the trained abl04 unit (exported/tandem's
+    weights, 48/4/4 planes, view aggregation, f32) at 640x480, V = 7, into
+    a temporary directory (main's own replays through model.pt2 and the
+    eager model under GOLDEN_TOL); the repo's golden pack replayed through
+    the saved program from a fresh torch.export.load: worst MAE over the
+    four stage-3 outputs < GOLDEN_TOL, warp_sample launched 18 times and
+    the edge filter once (its kernels), P5 and P3 not; the program's
+    stage-3 sha256 beside the eager f32 model's (the first differing op
+    named if they differ); a runner keyframe served from the program
+    (ExportedRunner) and from the eager f32 model (MvsnetRunner), host
+    clock, synced, median of 5 after a warm-up. Meanwhile a second process
+    runs ``python -m tandem_tpu_torch.cli.tandem_export`` at
+    replica_traj's 256x192 on the fixture's first "val" window; a
+    weightless unit of its model.pt2, device record, model_config.json and
+    pack serves tandem_dataset on the fixture's 64 frames: the boot
+    self-check, >= SLAM_MIN_FRAMES frames and ATE (Sim3) < SLAM_ATE_BOUND,
+    printed beside ``pkl_ate``, the slam phase's full run with the pkl
+    unit (bf16)."""
+    import contextlib
+    import io
+    import shutil
+    import subprocess
+    import tempfile
+    from types import SimpleNamespace
+
+    import torch
+
+    from tandem_tpu_torch.cli import tandem_export as te
+    from tandem_tpu_torch.models.cva_mvsnet import Stage3Forward
+    from tandem_tpu_torch.pipeline.mvsnet_runner import ExportedRunner
+    with open(UNIT / "model_config.json") as f:
+        cfg = json.load(f)
+    pack = np.load(UNIT / "sample_inputs.npz")
+    _, V, _, H, W = pack["image"].shape
+    label = card_label_once()
+    work = Path(tempfile.mkdtemp(prefix="export_"))
+    proc = None
+    try:
+        # The weightless unit at the fixture's size, exported by the CLI as
+        # a user runs it, in a second process while this one exports and
+        # replays the 640x480 unit (both are mostly host-side tracing).
+        small = work / "small"
+        small_log = work / "small.log"
+        t_small = time.perf_counter()
+        with open(small_log, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "tandem_tpu_torch.cli.tandem_export",
+                 "--ckpt", str(UNIT / "model_variables.pkl"),
+                 "--out-dir", str(small), "--width", "256", "--height",
+                 "192", "--view-num", str(V), "--depth-num",
+                 ",".join(str(d) for d in cfg["depth_num"]),
+                 "--data-root", str(FIXTURE.parent), "--device", dev.type],
+                cwd=REPO, stdout=f, stderr=subprocess.STDOUT)
+        t0 = time.perf_counter()
+        res = te.main(SimpleNamespace(
+            ckpt=str(UNIT / "model_variables.pkl"), out_dir=str(work / "unit"),
+            data_root=None, width=W, height=H, view_num=V,
+            discard_percentage=float(pack["discard_percentage"]),
+            view_aggregation=cfg["view_aggregation"],
+            depth_num=",".join(str(d) for d in cfg["depth_num"]),
+            device=dev.type))
+        main_s = time.perf_counter() - t0
+        log(f"[export] tandem_export.main at {W}x{H} V={V} depth_num "
+            f"{cfg['depth_num']}: {main_s:.1f} s in all, torch.export + "
+            f"save {res['export_s']:.1f} s, model.pt2 "
+            f"{(work / 'unit' / te.PROGRAM).stat().st_size} bytes; its pack "
+            f"replayed through model.pt2 MAE {res['exported_mae']:.3e}, "
+            f"through the eager model {res['golden_mae']:.3e} ({label})")
+
+        program, served = te.load_program(str(work / "unit"))
+        module = program.module()
+        x = te.program_inputs(pack, float(pack["discard_percentage"]), dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        calls0 = edge_calls()
+        with torch.no_grad():
+            outs = module(*x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        edge = require_edge_filter("export replay", counts["edge_kth"],
+                                   edge_calls() - calls0, 1)
+        if counts["bilinear_sample"] != 3 * (V - 1):
+            raise AssertionError(f"export replay: warp_sample launched "
+                                 f"{counts['bilinear_sample']} times, want "
+                                 f"{3 * (V - 1)}")
+        require_not_launched("export replay", counts,
+                             ("bilinear_index", "corner_blend"))
+        worst = max(float(np.abs(pack["out." + k]
+                                 - v.float().cpu().numpy()).mean())
+                    for k, v in zip(te.STAGE3, outs))
+        log(f"[export] exported/{UNIT.name}/sample_inputs.npz through a "
+            f"fresh torch.export.load of model.pt2 on {served}: worst MAE "
+            f"{worst:.3e} over the 4 stage-3 outputs (bar {GOLDEN_TOL}); "
+            f"launches {counts}; {edge}")
+        if not worst < GOLDEN_TOL:
+            raise AssertionError(f"export replay MAE {worst:.3e}")
+
+        runner, _ = load_runner(dev, torch.float32)
+        eager = Stage3Forward(runner.model)
+        with torch.no_grad():
+            want = eager(*x)
+        prog_digest, eager_digest = _stage3_digest(outs), _stage3_digest(want)
+        equal = prog_digest == eager_digest
+        log(f"[export] stage-3 outputs sha256: program {prog_digest}, eager "
+            f"f32 model {eager_digest}, equal: {equal}; the eager 12 "
+            f"outputs' sha256 (the golden phase's): "
+            f"{_golden_digest(runner, pack, dev)}")
+        if not equal:
+            log("[export] first differing op: "
+                + _first_differing_program_op(module, eager, x))
+
+        if proc.wait(timeout=600) != 0:
+            raise AssertionError("export: tandem_export at 256x192 failed:\n"
+                                 + small_log.read_text()[-3000:])
+        small_s = time.perf_counter() - t_small
+        exported = ExportedRunner(str(work / "unit"), H, W, view_num=V,
+                                  device=dev)
+        bgrs, poses, _ = golden_window(pack)
+        K = pack["K3"][0]
+        dmin, dmax = float(pack["depth_min"][0]), float(pack["depth_max"][0])
+        times = {}
+        for name, r in (("program", exported), ("eager f32", runner),
+                        ("program again", exported),
+                        ("eager f32 again", runner)):
+            def keyframe():
+                r.call_async(bgrs, poses, K, dmin, dmax)
+                return r.get_result(device=True)
+            keyframe()
+            times[name] = round(_median_ms(keyframe)[0], 3)
+        log(f"[export] ms a runner keyframe at {W}x{H} (host clock, synced, "
+            f"median of 5 after a warm-up; ExportedRunner on model.pt2 vs "
+            f"MvsnetRunner f32): {times} ({label})")
+        del runner, exported, module, program
+        torch.cuda.empty_cache()
+
+        unit = work / "weightless"
+        unit.mkdir()
+        for name in (te.PROGRAM, te.PROGRAM_INFO, "model_config.json",
+                     "sample_inputs.npz"):
+            shutil.copy(small / name, unit / name)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            r = _slam_run(dev, work / "slam", True, unit=unit)
+        boot = [ln for ln in out.getvalue().splitlines()
+                if "self-check" in ln]
+        nf = r["res"]["frames"]
+        log(f"[export] weightless unit ({sorted(os.listdir(unit))}, "
+            f"exported at 256x192 by python -m "
+            f"tandem_tpu_torch.cli.tandem_export in a second process, "
+            f"{small_s:.1f} s to its end; "
+            + " | ".join(ln for ln in small_log.read_text().splitlines()
+                         if "exported" in ln or "error" in ln)
+            + f"): tandem_dataset "
+            f"{boot}; frames {nf}, {r['res']['seconds']:.3f} s, FPS "
+            f"{nf / r['res']['seconds']:.3f}, keyframes {r['kfs']}, backend "
+            f"calls {r['res']['backend'].call_num}; ATE "
+            f"{r['ate']['rmse'] * 1e3:.3f} mm (Sim3, {r['pairs']}/64 frames; "
+            f"bound {SLAM_ATE_BOUND * 1e3} mm; the pkl unit in bf16, the "
+            f"slam phase's full run: {pkl_ate * 1e3:.3f} mm) ({label})")
+        if not boot or r["pairs"] < SLAM_MIN_FRAMES or not (
+                r["ate"]["rmse"] < SLAM_ATE_BOUND):
+            raise AssertionError(f"export slam: boot {boot}, {r['pairs']} "
+                                 f"frames, ATE {r['ate']['rmse'] * 1e3:.3f} "
+                                 "mm")
+        if r["res"]["backend"].call_num < 1:
+            raise AssertionError("export slam: the backend was never called")
+        require_launched("export slam", r["counts"],
+                         ("bilinear_sample", "track_reduce", "track_lm"))
+        require_edge_filter("export slam", r["counts"]["edge_kth"],
+                            r["edge_calls"], 1)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return {"export_replay": counts, "export_slam": r["counts"]}
+
+
 def phase_wall(dev):
     """tests/test_tsdf.py::test_render_depth_splat_wall at 640x480 with the
     default TSDF configuration."""
@@ -2151,12 +2373,14 @@ def phase_culled(dev, backend, pack):
 
 
 def _slam_run(dev, out_dir: Path, mvsnet: bool,
-              count_syncs: bool = False, preload: bool = False) -> dict:
+              count_syncs: bool = False, preload: bool = False,
+              unit: Path = UNIT) -> dict:
     """One run of the port's tandem_dataset CLI on the trajectory fixture
     (frames read through the prefetcher, or all up front with
-    ``preload``); its ATE against the GT poses, the launches of each kernel
-    in the run and, with ``count_syncs``, the host reads (synchronizing
-    CUDA calls, by torch's sync debug mode)."""
+    ``preload``; ``unit`` is its mvsnet_folder); its ATE against the GT
+    poses, the launches of each kernel in the run and, with
+    ``count_syncs``, the host reads (synchronizing CUDA calls, by torch's
+    sync debug mode)."""
     import warnings
 
     import torch
@@ -2172,7 +2396,7 @@ def _slam_run(dev, out_dir: Path, mvsnet: bool,
             f"calib={FIXTURE / 'camera_dso.txt'}", f"result_folder={out_dir}",
             "dr_timing=1"]
     if mvsnet:
-        argv.append(f"mvsnet_folder={UNIT}")
+        argv.append(f"mvsnet_folder={unit}")
     if preload:
         argv.append("preload=1")
     ops = (_system_terms, trace_points, _calc_res_gs, _corner_grids)
@@ -2324,7 +2548,7 @@ def phase_slam(dev) -> dict:
     mesh.obj, launch K1's filter, bilinear_sample, track_lm and
     track_reduce inside the loop, and give the same result.txt sha256: the
     first reads its frames through the prefetcher, the second with
-    preload=1."""
+    preload=1. Returns the launches by run and the full run's ATE (m)."""
     import shutil
     import tempfile
 
@@ -2393,9 +2617,10 @@ def phase_slam(dev) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
-    return {"slam_vo": runs["vo"]["counts"],
-            "slam_full": runs["full"]["counts"],
-            "slam_full_again": runs["full_again"]["counts"]}
+    return ({"slam_vo": runs["vo"]["counts"],
+             "slam_full": runs["full"]["counts"],
+             "slam_full_again": runs["full_again"]["counts"]},
+            runs["full"]["ate"]["rmse"])
 
 
 def _runtime_frames(n: int, H: int, W: int):
@@ -3481,8 +3706,11 @@ def main() -> int:
     lap("track gt")
     paths["track_mvs"] = phase_track_mvs(dev)
     lap("track mvs")
-    paths.update(phase_slam(dev))
+    slam_paths, pkl_ate = phase_slam(dev)
+    paths.update(slam_paths)
     lap("slam")
+    paths.update(phase_export(dev, pkl_ate))
+    lap("export")
     paths["runtime_640x480"] = phase_runtime_640(dev)
     lap("runtime 640x480")
     phase_decode()

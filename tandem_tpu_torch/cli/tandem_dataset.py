@@ -24,8 +24,13 @@ API (``FullSystem.add_active_frame(..., depth=)``). ``log_stuff=1``
 writes result_folder/logs, ``debug_save_depth_images=1`` the depth dumps,
 ``save_dr_video=1`` the keyframe panels under result_folder/dr_video (with
 a unit) and ``viewer3d=1`` the headless 3D viewer's PNGs under
-result_folder/view3d and view3d_final.png. A unit that holds only
-model.stablehlo is not ported (NotImplementedError).
+result_folder/view3d and view3d_final.png. A unit is served from its
+model_variables.pkl (bf16, the JAX runtime's dtype) or, without one, from
+its model.pt2 alone (``ExportedRunner``, in the program's f32, on the
+device it was exported for), each with its boot golden self-check when
+the unit holds sample_inputs.npz. A unit that holds only model.stablehlo
+is not ported (NotImplementedError: export it again with
+``python -m tandem_tpu_torch.cli.tandem_export``).
 """
 
 from __future__ import annotations
@@ -109,11 +114,12 @@ def main(argv=None, device=None):
     from ..pipeline.backend import TandemBackend
     from ..pipeline.full_system import (FullSystem, make_full_system_options,
                                         resolve_device)
-    from ..pipeline.mvsnet_runner import MvsnetRunner
+    from ..pipeline.mvsnet_runner import ExportedRunner, MvsnetRunner
     from ..pipeline.output_wrapper import PanelOutputWrapper
     from ..pipeline.viewer import Viewer3DWrapper
     from ..utils.timer import Timer
     from .golden import GOLDEN_TOL, load_model_config, verify_golden
+    from .tandem_export import PROGRAM, verify_exported
 
     dev = resolve_device(device or port_keys.get("device"))
     fx, fy, cx, cy, W, H = read_calib(s.calib)
@@ -124,21 +130,35 @@ def main(argv=None, device=None):
     if s.mvsnet_folder:
         pkl = os.path.join(s.mvsnet_folder, "model_variables.pkl")
         pack = os.path.join(s.mvsnet_folder, "sample_inputs.npz")
-        if not os.path.exists(pkl):
+        if os.path.exists(pkl):
+            variables = load_variables(pkl)
+            model = CvaMVSNet(**load_model_config(s.mvsnet_folder),
+                              dtype=torch.bfloat16)
+            runner = MvsnetRunner(model, variables, H, W,
+                                  view_num=s.dr_mvsnet_view_num, device=dev)
+            # Boot-time golden self-check (FullSystem initDr,
+            # dr_mvsnet_test).
+            if os.path.exists(pack):
+                err = verify_golden(pack, variables, dev)
+                print(f"MVSNet golden self-check: {err:.2e}")
+                assert err < 10 * GOLDEN_TOL
+        elif os.path.exists(os.path.join(s.mvsnet_folder, PROGRAM)):
+            # Weightless deployment: the unit's torch.export program alone
+            # (the reference deploys with only model.pt,
+            # main_tandem_pangolin.cpp).
+            runner = ExportedRunner(s.mvsnet_folder, H, W,
+                                    view_num=s.dr_mvsnet_view_num, device=dev)
+            if os.path.exists(pack):
+                err = verify_exported(s.mvsnet_folder, runner.device,
+                                      runner.program)
+                print(f"MVSNet golden self-check ({PROGRAM}): {err:.2e}")
+                assert err < GOLDEN_TOL
+        else:
             raise NotImplementedError(
-                f"{s.mvsnet_folder} holds no model_variables.pkl: serving a "
-                "model.stablehlo unit alone is not ported (ROADMAP, not "
-                "ported by design)")
-        variables = load_variables(pkl)
-        model = CvaMVSNet(**load_model_config(s.mvsnet_folder),
-                          dtype=torch.bfloat16)
-        runner = MvsnetRunner(model, variables, H, W,
-                              view_num=s.dr_mvsnet_view_num, device=dev)
-        # Boot-time golden self-check (FullSystem initDr, dr_mvsnet_test).
-        if os.path.exists(pack):
-            err = verify_golden(pack, variables, dev)
-            print(f"MVSNet golden self-check: {err:.2e}")
-            assert err < 10 * GOLDEN_TOL
+                f"{s.mvsnet_folder} holds neither model_variables.pkl nor "
+                f"{PROGRAM}: serving a model.stablehlo unit alone is not "
+                "ported; export the unit again with python -m "
+                "tandem_tpu_torch.cli.tandem_export")
         backend = TandemBackend(runner, TsdfConfig(), K_mat, H, W,
                                 mesh_extraction_freq=s.mesh_extraction_freq,
                                 timer=timer)

@@ -1,10 +1,11 @@
-"""tandem_tpu flax variables -> the port's torch state_dict.
+"""tandem_tpu flax variables <-> the port's torch state_dict.
 
 The exact inverse of ``tandem_tpu/models/torch_convert.py``
 ``convert_state_dict``: the JAX package's parameter tree (plain numpy dicts,
 as pickled in ``exported/*/model_variables.pkl``) becomes a state_dict
-under the reference model's key names, which the port's modules use.
-Layout conversions (inverse of the forward converter):
+under the reference model's key names, which the port's modules use;
+``state_dict_to_flax`` goes back. Layout conversions (inverse of the
+forward converter):
 
 - Conv2d  (kh, kw, I, O)        -> (O, I, kh, kw)
 - Conv3d  (kd, kh, kw, I, O)    -> (O, I, kd, kh, kw)
@@ -43,67 +44,107 @@ def load_variables(path: str) -> dict:
         return pickle.load(f)
 
 
-def _conv2d(w):
-    return np.transpose(w, (3, 2, 0, 1))
+# Layouts: flax -> torch, and back.
+_LAYOUTS = {
+    # Conv2d (kh, kw, I, O) -> (O, I, kh, kw)
+    "conv2d": (lambda w: np.transpose(w, (3, 2, 0, 1)),
+               lambda w: np.transpose(w, (2, 3, 1, 0))),
+    # Conv3d (kd, kh, kw, I, O) -> (O, I, kd, kh, kw)
+    "conv3d": (lambda w: np.transpose(w, (4, 3, 0, 1, 2)),
+               lambda w: np.transpose(w, (2, 3, 4, 1, 0))),
+    # ConvTranspose3d: un-flip, then (kd, kh, kw, I, O) -> (I, O, kd, kh, kw)
+    "deconv3d": (lambda w: np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2)),
+                 lambda w: np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]),
+    "vector": (lambda w: w, lambda w: w),
+}
 
 
-def _conv3d(w):
-    return np.transpose(w, (4, 3, 0, 1, 2))
+def _entries(view_aggregation: bool):
+    """(state_dict key, flax path, layout) of every converted tensor; the
+    path starts with "params" or "batch_stats"."""
+    out = []
 
+    def bn(dst: str, p: tuple, s: tuple):
+        out.extend([(f"{dst}.weight", ("params", *p, "scale"), "vector"),
+                    (f"{dst}.bias", ("params", *p, "bias"), "vector"),
+                    (f"{dst}.running_mean", ("batch_stats", *s, "mean"),
+                     "vector"),
+                    (f"{dst}.running_var", ("batch_stats", *s, "var"),
+                     "vector")])
 
-def _deconv3d(w):
-    return np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2))
+    def conv_bn(dst: str, p: tuple, layout: str):
+        out.append((f"{dst}.conv.weight", ("params", *p, "conv", "kernel"),
+                    layout))
+        bn(f"{dst}.bn", (*p, "bn"), (*p, "bn"))
+
+    for dst, src in _FEATURE_CONVS:
+        conv_bn(f"feature_net.{dst}", ("feature_net", src), "conv2d")
+    for s in STAGES:
+        out.append((f"feature_net.out.{s}.weight",
+                    ("params", "feature_net", f"out_{s}", "kernel"),
+                    "conv2d"))
+    for s in ("stage2", "stage3"):
+        out.append((f"feature_net.skip.{s}.weight",
+                    ("params", "feature_net", f"skip_{s}", "kernel"),
+                    "conv2d"))
+        out.append((f"feature_net.skip.{s}.bias",
+                    ("params", "feature_net", f"skip_{s}", "bias"),
+                    "vector"))
+
+    for s in STAGES:
+        dst, src = f"cost_regularization_net.{s}", f"cost_reg_{s}"
+        for c in _COSTREG_CONVS:
+            conv_bn(f"{dst}.{c}", (src, c), "conv3d")
+        for c in _COSTREG_DECONVS:
+            out.append((f"{dst}.{c}.conv.weight",
+                        ("params", src, c, "kernel"), "deconv3d"))
+            bn(f"{dst}.{c}.bn", (src, c, "bn"), (src, c, "bn"))
+        out.append((f"{dst}.prob.weight", ("params", src, "prob", "kernel"),
+                    "conv3d"))
+
+    if view_aggregation:
+        # Sequential(0 Conv3d, 1 BN, 2 ReLU, 3 Conv3d, 4 BN, 5 ReLU)
+        for s in STAGES:
+            dst, src = f"volume_gates.{s}", f"volume_gate_{s}"
+            for i, (conv, norm) in enumerate((("gate0", "bn0"),
+                                              ("gate1", "bn1"))):
+                out.append((f"{dst}.{3 * i}.weight",
+                            ("params", src, conv, "kernel"), "conv3d"))
+                out.append((f"{dst}.{3 * i}.bias",
+                            ("params", src, conv, "bias"), "vector"))
+                bn(f"{dst}.{3 * i + 1}", (src, norm), (src, norm))
+    return out
 
 
 def flax_to_state_dict(variables: dict, view_aggregation: bool = True
                        ) -> Dict[str, torch.Tensor]:
     """:param variables: {'params': ..., 'batch_stats': ...} numpy tree.
     :return: state_dict of CPU float32 tensors for ``CvaMVSNet``."""
-    params, stats = variables["params"], variables["batch_stats"]
     sd: Dict[str, torch.Tensor] = {}
-
-    def put(key, value):
-        sd[key] = torch.tensor(np.array(value, np.float32, order="C"))
-
-    def bn(dst: str, p: dict, s: dict):
-        put(f"{dst}.weight", p["scale"])
-        put(f"{dst}.bias", p["bias"])
-        put(f"{dst}.running_mean", s["mean"])
-        put(f"{dst}.running_var", s["var"])
-        sd[f"{dst}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
-
-    def conv_bn(dst: str, p: dict, s: dict, conv_fn):
-        put(f"{dst}.conv.weight", conv_fn(p["conv"]["kernel"]))
-        bn(f"{dst}.bn", p["bn"], s["bn"])
-
-    fp, fs = params["feature_net"], stats["feature_net"]
-    for dst, src in _FEATURE_CONVS:
-        conv_bn(f"feature_net.{dst}", fp[src], fs[src], _conv2d)
-    for s in STAGES:
-        put(f"feature_net.out.{s}.weight", _conv2d(fp[f"out_{s}"]["kernel"]))
-    for s in ("stage2", "stage3"):
-        put(f"feature_net.skip.{s}.weight", _conv2d(fp[f"skip_{s}"]["kernel"]))
-        put(f"feature_net.skip.{s}.bias", fp[f"skip_{s}"]["bias"])
-
-    for s in STAGES:
-        dst = f"cost_regularization_net.{s}"
-        cp, cs = params[f"cost_reg_{s}"], stats[f"cost_reg_{s}"]
-        for c in _COSTREG_CONVS:
-            conv_bn(f"{dst}.{c}", cp[c], cs[c], _conv3d)
-        for c in _COSTREG_DECONVS:
-            put(f"{dst}.{c}.conv.weight", _deconv3d(cp[c]["kernel"]))
-            bn(f"{dst}.{c}.bn", cp[c]["bn"], cs[c]["bn"])
-        put(f"{dst}.prob.weight", _conv3d(cp["prob"]["kernel"]))
-
-    if view_aggregation:
-        # Sequential(0 Conv3d, 1 BN, 2 ReLU, 3 Conv3d, 4 BN, 5 ReLU)
-        for s in STAGES:
-            dst = f"volume_gates.{s}"
-            gp, gs = params[f"volume_gate_{s}"], stats[f"volume_gate_{s}"]
-            put(f"{dst}.0.weight", _conv3d(gp["gate0"]["kernel"]))
-            put(f"{dst}.0.bias", gp["gate0"]["bias"])
-            bn(f"{dst}.1", gp["bn0"], gs["bn0"])
-            put(f"{dst}.3.weight", _conv3d(gp["gate1"]["kernel"]))
-            put(f"{dst}.3.bias", gp["gate1"]["bias"])
-            bn(f"{dst}.4", gp["bn1"], gs["bn1"])
+    for key, path, layout in _entries(view_aggregation):
+        leaf = variables
+        for name in path:
+            leaf = leaf[name]
+        sd[key] = torch.tensor(np.array(_LAYOUTS[layout][0](leaf),
+                                        np.float32, order="C"))
+        if key.endswith(".running_var"):
+            sd[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.zeros((), dtype=torch.int64)
     return sd
+
+
+def state_dict_to_flax(state_dict, view_aggregation: bool = True) -> dict:
+    """The inverse of ``flax_to_state_dict``: a ``CvaMVSNet`` state_dict
+    (e.g. ``train/checkpoint.load_any``'s) as the JAX package's variables,
+    {'params': ..., 'batch_stats': ...} of plain dicts of float32 numpy
+    arrays, the tree ``model_variables.pkl`` holds. The
+    ``num_batches_tracked`` counters have no counterpart and are dropped.
+    """
+    tree: dict = {}
+    for key, path, layout in _entries(view_aggregation):
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        value = state_dict[key].detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.ascontiguousarray(_LAYOUTS[layout][1](value))
+    return tree

@@ -224,6 +224,29 @@ class CvaMVSNet(nn.Module):
         return depth, conf.detach()
 
 
+class Stage3Forward(nn.Module):
+    """The deployable forward: the JAX export's eight inputs (image,
+    K1, K2, K3, cam_to_world, depth_min, depth_max, discard_percentage;
+    tandem_tpu/cli/tandem_export.py:175-188) -> stage 3's filtered depth
+    and confidence and the unfiltered pair. The filter runs on stage 3
+    alone, as ``MvsnetRunner`` runs it (the model filters each stage the
+    same way, so the outputs equal its stage-3 fields). No host read and no
+    branch on a device: ``torch.export`` traces it whole, with the kernels
+    as custom-op nodes."""
+
+    def __init__(self, model: CvaMVSNet):
+        super().__init__()
+        self.model = model
+
+    def forward(self, image, K1, K2, K3, cam_to_world, depth_min, depth_max,
+                discard_percentage):
+        out = self.model._forward(image, (K1, K2, K3), cam_to_world,
+                                  depth_min, depth_max, None, False)
+        depth, conf = out.stage3.depth, out.stage3.confidence
+        filtered = filter_edges(depth, discard_percentage, conf)
+        return filtered.depth, filtered.conf, depth, conf
+
+
 def outputs_to_dict(outputs: Outputs):
     """{stage: {"depth", "confidence"}} of the (filtered) outputs."""
     return {s: {"depth": getattr(outputs, s).depth,

@@ -17,18 +17,26 @@ pieces of that older path (the positions as ``ops/warp.py`` computed them,
 ``bilinear_index_plain``, ``pack_corners``, ``corner_blend_plain``), and the
 kernel equals them bit for bit.
 
-Gradient: ``warp_sample`` is differentiable with respect to the image. On
-a CUDA tensor it is a ``torch.autograd.Function`` whose backward launches
-the hand-written gradient kernel of the same source
-(``warp_sample_grad``: the forward's positions, weights and drop decisions;
-a thread sums a run of one pixel's planes on one source cell in registers
-and adds each corner's sum with one float32 vector atomic, the sums then
-cast once to the image's dtype); on a CPU
-tensor the gradient is autograd's through ``warp_sample_plain``. No
-gradient flows to the matrix or the depths (the JAX package's positions
-depend only on inputs and stopped depths): the call raises if either
-requires one. The atomics add in an order that changes from run to run,
-so the gradient on the card is not bit-reproducible; the forward is.
+Custom ops: the plane sweep and its gradient are the ``torch.library``
+custom ops ``tandem::warp_sample`` and ``tandem::warp_sample_grad``, whose
+CPU implementations are the plain versions and whose CUDA implementations
+launch the kernels; a fake implementation gives each output's shape and
+dtype. The dispatcher picks the implementation by the tensors' device when
+the op runs, so ``torch.export`` keeps each call as one node of the graph
+and an exported program launches the kernels on the card.
+
+Gradient: ``warp_sample`` is differentiable with respect to the image,
+through the op's registered autograd formula on either device: the
+backward is ``warp_sample_grad`` (on the card one launch of the
+hand-written gradient kernel of the same source: the forward's positions,
+weights and drop decisions; a thread sums a run of one pixel's planes on
+one source cell in registers and adds each corner's sum with one float32
+vector atomic; on the CPU ``warp_sample_grad_plain``), the float32 sums
+then cast once to the image's dtype. No gradient flows to the matrix or
+the depths (the JAX package's positions depend only on inputs and stopped
+depths): the call raises if either requires one. The atomics add in an
+order that changes from run to run, so the gradient on the card is not
+bit-reproducible; the forward is.
 """
 
 from __future__ import annotations
@@ -253,6 +261,15 @@ def warp_sample(img, ref_to_src, depth, min_depth_thres: float = 0.001):
     :param min_depth_thres: samples whose source z is below it are zero
     :return: (B, D, H, W, C) of img's dtype
     """
+    if torch.is_grad_enabled() and (ref_to_src.requires_grad
+                                    or depth.requires_grad):
+        raise ValueError("warp_sample: no gradient flows to the matrix or "
+                         "the depths; detach them")
+    return torch.ops.tandem.warp_sample(img, ref_to_src, depth,
+                                        float(min_depth_thres))
+
+
+def _check_sweep(img, ref_to_src, depth):
     _check("warp_sample", img, (ref_to_src, depth))
     B, H, W, C = img.shape
     if ref_to_src.shape != (B, 3, 4) or depth.dim() != 4 \
@@ -260,36 +277,22 @@ def warp_sample(img, ref_to_src, depth, min_depth_thres: float = 0.001):
         raise ValueError(f"warp_sample: want ref_to_src ({B}, 3, 4) and "
                          f"depth ({B}, D, {H}, {W}), got "
                          f"{tuple(ref_to_src.shape)} {tuple(depth.shape)}")
-    grad = torch.is_grad_enabled()
-    if grad and (ref_to_src.requires_grad or depth.requires_grad):
-        raise ValueError("warp_sample: no gradient flows to the matrix or "
-                         "the depths; detach them")
-    if not img.is_cuda:
-        return warp_sample_plain(img, ref_to_src, depth, min_depth_thres)
-    if grad and img.requires_grad:
-        return _WarpSample.apply(img, ref_to_src, depth, min_depth_thres)
-    return _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres)
 
 
-class _WarpSample(torch.autograd.Function):
-    """``warp_sample`` on the card with its hand-written backward."""
-
-    @staticmethod
-    def forward(ctx, img, ref_to_src, depth, min_depth_thres):
-        ctx.save_for_backward(ref_to_src, depth)
-        ctx.min_depth_thres = min_depth_thres
-        return _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        ref_to_src, depth = ctx.saved_tensors
-        grad = warp_sample_grad(grad_out.contiguous(), ref_to_src, depth,
-                                ctx.min_depth_thres)
-        return grad.to(grad_out.dtype), None, None, None
+@torch.library.custom_op("tandem::warp_sample", mutates_args=(),
+                         device_types="cpu")
+def _warp_sample_op(img: torch.Tensor, ref_to_src: torch.Tensor,
+                    depth: torch.Tensor,
+                    min_depth_thres: float) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    _check_sweep(img, ref_to_src, depth)
+    return warp_sample_plain(img, ref_to_src, depth, min_depth_thres)
 
 
+@_warp_sample_op.register_kernel("cuda")
 def _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres):
-    """The forward kernel's launch (the inputs checked by warp_sample)."""
+    """The op on the card: the forward kernel's launch."""
+    _check_sweep(img, ref_to_src, depth)
     B, H, W, C = img.shape
     D = depth.shape[1]
     if B * D > MAX_PLANES or _too_large(H, W, C):
@@ -308,6 +311,33 @@ def _warp_sample_cuda(img, ref_to_src, depth, min_depth_thres):
     return out
 
 
+@_warp_sample_op.register_fake
+def _(img, ref_to_src, depth, min_depth_thres):
+    _check_sweep(img, ref_to_src, depth)
+    B, H, W, C = img.shape
+    return img.new_empty((B, depth.shape[1], H, W, C))
+
+
+def _warp_sample_setup(ctx, inputs, output):
+    _, ref_to_src, depth, min_depth_thres = inputs
+    ctx.save_for_backward(ref_to_src, depth)
+    ctx.min_depth_thres = min_depth_thres
+
+
+def _warp_sample_backward(ctx, grad_out):
+    """``warp_sample_grad``'s float32 sums in the image's dtype; none for
+    the matrix and the depths. The module's name is looked up at each call,
+    so a recorder put in its place sees every backward call."""
+    ref_to_src, depth = ctx.saved_tensors
+    grad = warp_sample_grad(grad_out.contiguous(), ref_to_src, depth,
+                            ctx.min_depth_thres)
+    return grad.to(grad_out.dtype), None, None, None
+
+
+torch.library.register_autograd("tandem::warp_sample", _warp_sample_backward,
+                                setup_context=_warp_sample_setup)
+
+
 def warp_sample_grad(grad_out, ref_to_src, depth,
                      min_depth_thres: float = 0.001):
     """The gradient of ``warp_sample`` with respect to its image, as float32
@@ -318,6 +348,11 @@ def warp_sample_grad(grad_out, ref_to_src, depth,
     :param ref_to_src, depth, min_depth_thres: the forward's
     :return: (B, H, W, C) float32
     """
+    return torch.ops.tandem.warp_sample_grad(grad_out, ref_to_src, depth,
+                                             float(min_depth_thres))
+
+
+def _check_grad(grad_out, ref_to_src, depth):
     if grad_out.dim() != 5 or not grad_out.is_contiguous():
         raise ValueError("warp_sample_grad: grad_out must be a contiguous "
                          f"(B, D, H, W, C), got {tuple(grad_out.shape)}")
@@ -328,9 +363,25 @@ def warp_sample_grad(grad_out, ref_to_src, depth,
         raise ValueError(f"warp_sample_grad: want ref_to_src ({B}, 3, 4) and "
                          f"depth ({B}, {D}, {H}, {W}); got "
                          f"{tuple(ref_to_src.shape)} {tuple(depth.shape)}")
-    if not grad_out.is_cuda:
-        return warp_sample_grad_plain(grad_out, ref_to_src, depth,
-                                      min_depth_thres)
+
+
+@torch.library.custom_op("tandem::warp_sample_grad", mutates_args=(),
+                         device_types="cpu")
+def _warp_sample_grad_op(grad_out: torch.Tensor, ref_to_src: torch.Tensor,
+                         depth: torch.Tensor,
+                         min_depth_thres: float) -> torch.Tensor:
+    """The gradient op on the CPU: the plain version."""
+    _check_grad(grad_out, ref_to_src, depth)
+    return warp_sample_grad_plain(grad_out, ref_to_src, depth,
+                                  min_depth_thres)
+
+
+@_warp_sample_grad_op.register_kernel("cuda")
+def _warp_sample_grad_cuda(grad_out, ref_to_src, depth, min_depth_thres):
+    """The gradient op on the card: the gradient kernel's launch with the
+    tiling of ``_grad_vec`` and ``grad_tiling``."""
+    _check_grad(grad_out, ref_to_src, depth)
+    B, D, H, W, C = grad_out.shape
     if B * D > MAX_PLANES or _too_large(H, W, C):
         raise ValueError(f"warp_sample_grad: {B} x {D} planes of {H} x {W} "
                          f"x {C} exceed the kernel's grid or offsets")
@@ -339,6 +390,13 @@ def warp_sample_grad(grad_out, ref_to_src, depth,
                          _sm_count(grad_out.get_device()))
     return _grad_call(grad_out, ref_to_src, depth, min_depth_thres, vec,
                       planes)
+
+
+@_warp_sample_grad_op.register_fake
+def _(grad_out, ref_to_src, depth, min_depth_thres):
+    _check_grad(grad_out, ref_to_src, depth)
+    B, D, H, W, C = grad_out.shape
+    return grad_out.new_empty((B, H, W, C), dtype=torch.float32)
 
 
 def _grad_call(grad_out, ref_to_src, depth, min_depth_thres: float,

@@ -13,13 +13,20 @@ launched, which ``edge_filter.launches`` adds up. For CPU tensors it runs
 without its histogram).
 There is no fallback: a CUDA tensor goes through the kernel or the call
 raises.
+
+The model's filter is the ``torch.library`` custom op
+``tandem::edge_filter(depth, discard_percentage, conf)``: it turns the
+percentage into the ranks itself (``discard_ranks``) and runs
+``edge_filter_plain`` on the CPU and the C call on the card, so
+``torch.export`` keeps it as one node that dispatches by device when the
+program runs.
 """
 
 from __future__ import annotations
 
 import ctypes
 import struct
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -164,7 +171,7 @@ def edge_filter(depth, ranks: Sequence[int], conf=None) -> EdgeFiltered:
     (0-indexed), depth and ``conf`` zeroed under the mask.
 
     :param depth: (B, H, W) float32, contiguous on the card
-    :param ranks: B host ints in [0, H*W) (``models.edge_filter._cutoff``)
+    :param ranks: B host ints in [0, H*W) (``discard_ranks``)
     :param conf: None or like depth, on depth's device
     :return: EdgeFiltered(depth, conf, mask, threshold)"""
     _check("edge_filter", depth, *(() if conf is None else (conf,)))
@@ -175,6 +182,12 @@ def edge_filter(depth, ranks: Sequence[int], conf=None) -> EdgeFiltered:
                          f"{ranks}")
     if depth.device.type == "cpu":
         return edge_filter_plain(depth, ranks, conf)
+    return _edge_filter_cuda(depth, ranks, conf)
+
+
+def _edge_filter_cuda(depth, ranks: List[int], conf) -> EdgeFiltered:
+    """The one C call (the inputs checked by the caller)."""
+    B = depth.shape[0]
     if B > MAX_BATCH:
         raise ValueError(f"edge_filter: at most {MAX_BATCH} images a call, "
                          f"got {B}")
@@ -189,6 +202,60 @@ def edge_filter(depth, ranks: Sequence[int], conf=None) -> EdgeFiltered:
         edge_filter.launches += launched.value
     edge_filter.calls += 1
     return out
+
+
+def discard_ranks(discard_percentage, hw: int) -> List[int]:
+    """Threshold rank per image, in float32 exactly as the JAX package
+    computes it (so the rank never shifts by one): trunc(H*W*(100-p)/100)
+    clipped to [0, H*W-1]. Host ints: a CPU tensor is read without a device
+    sync, a CUDA tensor is copied to the host with one."""
+    p = discard_percentage.detach().to("cpu", torch.float32)
+    cutoff = (hw * (100.0 - p) / 100.0).to(torch.int32)
+    return torch.clamp(cutoff, 0, hw - 1).tolist()
+
+
+FilterOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_op(depth, discard_percentage, conf):
+    _check("edge_filter", depth, *(() if conf is None else (conf,)))
+    if discard_percentage.shape != depth.shape[:1]:
+        raise ValueError(f"edge_filter: want a ({depth.shape[0]},) discard "
+                         f"percentage, got {tuple(discard_percentage.shape)}")
+
+
+def _op_outputs(out: EdgeFiltered, depth) -> FilterOut:
+    """The op's four tensors: an absent confidence is an empty tensor."""
+    conf = depth.new_empty((0,)) if out.conf is None else out.conf
+    return out.depth, conf, out.mask, out.threshold
+
+
+@torch.library.custom_op("tandem::edge_filter", mutates_args=(),
+                         device_types="cpu")
+def _edge_filter_op(depth: torch.Tensor, discard_percentage: torch.Tensor,
+                    conf: Optional[torch.Tensor]) -> FilterOut:
+    """The op on the CPU: ``edge_filter_plain``."""
+    _check_op(depth, discard_percentage, conf)
+    ranks = discard_ranks(discard_percentage, depth.shape[1] * depth.shape[2])
+    return _op_outputs(edge_filter_plain(depth, ranks, conf), depth)
+
+
+@_edge_filter_op.register_kernel("cuda")
+def _(depth, discard_percentage, conf):
+    """The op on the card: the one C call. ``discard_percentage`` may lie
+    on the CPU (read without a device sync) or on the card (one sync)."""
+    _check_op(depth, discard_percentage, conf)
+    ranks = discard_ranks(discard_percentage, depth.shape[1] * depth.shape[2])
+    return _op_outputs(_edge_filter_cuda(depth, ranks, conf), depth)
+
+
+@_edge_filter_op.register_fake
+def _(depth, discard_percentage, conf):
+    _check_op(depth, discard_percentage, conf)
+    return (torch.empty_like(depth),
+            depth.new_empty((0,)) if conf is None else torch.empty_like(conf),
+            torch.empty_like(depth, dtype=torch.bool),
+            depth.new_empty(depth.shape[:1]))
 
 
 edge_kth_value.launches = 0

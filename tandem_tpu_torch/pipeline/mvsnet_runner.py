@@ -17,6 +17,9 @@ Input packing parity (dr_mvsnet.cpp:180-250):
 - per-stage intrinsics by naive 0.25x/0.5x scaling (core/camera.py)
 - call-order protocol asserts (dr_mvsnet.cpp:100-107,315-318).
 
+``ExportedRunner`` serves the same protocol from a unit's ``model.pt2``
+(``cli/tandem_export``) without the weights or the model's code.
+
 The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
 float32, or bfloat16 as the JAX runtime deploys it); the depth and
 confidence it hands on are float32 in both.
@@ -31,8 +34,7 @@ import torch
 
 from ..core.camera import stage_intrinsics_runtime
 from ..models import convert
-from ..models.cva_mvsnet import CvaMVSNet
-from ..models.edge_filter import filter_edges
+from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
 from ..native_bridge import bgr_pack_u8
 
 
@@ -46,12 +48,18 @@ class MvsnetRunner:
         of an exported unit.
         :param device: the card by default; ``"cpu"`` only when asked (the
             CPU tests). Without a card the default raises."""
-        self.device = torch.device(device)
-        self.height, self.width, self.view_num = height, width, view_num
+        self._start(device, height, width, view_num)
         model.load_state_dict(convert.flax_to_state_dict(
             variables, view_aggregation=model.view_aggregation))
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype
+        self._forward = Stage3Forward(self.model)
+
+    def _start(self, device, height: int, width: int, view_num: int):
+        """The protocol's state: the device, the shapes, the 255 divisor
+        and the runner's own CUDA stream."""
+        self.device = torch.device(device)
+        self.height, self.width, self.view_num = height, width, view_num
         # A tensor, not a Python float: CUDA turns ``x / 255.0`` into a
         # multiply by the rounded reciprocal, ``x / tensor`` divides.
         self._u8_scale = torch.tensor(255.0, device=self.device)
@@ -106,18 +114,24 @@ class MvsnetRunner:
             self._stream.synchronize()
 
     def _run(self, image, Ks, c2w, depth_min, depth_max, discard):
+        """The stage-3 forward on the packed inputs: (filtered depth,
+        filtered confidence, depth, confidence), each (1, H, W)."""
+        with torch.no_grad():
+            return self._forward(*self._device_inputs(
+                image, Ks, c2w, depth_min, depth_max, discard))
+
+    def _device_inputs(self, image, Ks, c2w, depth_min, depth_max,
+                       discard) -> tuple:
+        """The eight inputs of the stage-3 forward: the packed arrays on the
+        device, the image divided there, and the discard share a CPU
+        tensor, so the threshold rank needs no device sync."""
         dev = self.device
-        out = self.model(self.normalize(torch.from_numpy(image).to(dev)),
-                         [torch.from_numpy(k).to(dev) for k in Ks],
-                         torch.from_numpy(c2w).to(dev),
-                         torch.full((1,), depth_min, device=dev),
-                         torch.full((1,), depth_max, device=dev))
-        depth, conf = out.stage3.depth, out.stage3.confidence
-        # The edge filter is a pure post-pass (cva_mvsnet.py:165-177); the
-        # discard share stays on the host so the threshold rank needs no
-        # device sync.
-        filtered = filter_edges(depth, torch.full((1,), discard), conf)
-        return filtered.depth, filtered.conf, depth, conf
+        return (self.normalize(torch.from_numpy(image).to(dev)),
+                *(torch.from_numpy(k).to(dev) for k in Ks),
+                torch.from_numpy(c2w).to(dev),
+                torch.full((1,), depth_min, device=dev),
+                torch.full((1,), depth_max, device=dev),
+                torch.full((1,), discard))
 
     def call_async(self, bgrs, cam_to_worlds, K, depth_min: float,
                    depth_max: float, discard_percentage: float = 10.0,
@@ -156,3 +170,33 @@ class MvsnetRunner:
         self._event = None
         self._ready = True
         return result
+
+
+class ExportedRunner(MvsnetRunner):
+    """The ``MvsnetRunner`` protocol served from a unit's ``model.pt2``
+    alone (the counterpart of the JAX package's ``StablehloRunner``): the
+    weights are inside the program, so no variables pickle and no model
+    code are read. The program is ``torch.export``'s, written by
+    ``cli/tandem_export``; it serves on the device it was exported for
+    (another raises) and at its shapes, which the runner checks against
+    the deployment's (1, V, 3, H, W)."""
+
+    def __init__(self, unit_dir: str, height: int, width: int,
+                 view_num: int = 7, device=None):
+        """:param device: by default the device the program was exported
+            for; another raises."""
+        from ..cli.tandem_export import load_program
+
+        program, dev = load_program(unit_dir, device)
+        placeholder = {n.name: n for n in program.graph.nodes
+                       if n.op == "placeholder"}
+        shape = tuple(placeholder[program.graph_signature.user_inputs[0]]
+                      .meta["val"].shape)
+        if shape != (1, view_num, 3, height, width):
+            raise ValueError(f"{unit_dir}: the program was exported for "
+                             f"{shape}, asked (1, {view_num}, 3, {height}, "
+                             f"{width})")
+        self._start(dev, height, width, view_num)
+        self.model = None
+        self.dtype = torch.float32
+        self.program = self._forward = program.module()

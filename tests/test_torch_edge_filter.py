@@ -26,12 +26,12 @@ from tandem_tpu.models.edge_filter import _kth_value
 from tandem_tpu.models.edge_filter import depth_filter_edges as jax_filter
 from tandem_tpu.ops.pallas_kernels import (edge_kth_value_pallas,
                                            edge_kth_value_xla)
-from tandem_tpu_torch.models.edge_filter import (_cutoff, depth_filter_edges,
+from tandem_tpu_torch.models.edge_filter import (depth_filter_edges,
                                                  filter_edges)
 from tandem_tpu_torch.ops import edge_kth as ek
-from tandem_tpu_torch.ops.edge_kth import (edge_filter, edge_filter_plain,
-                                           edge_kth_plain, edge_kth_value,
-                                           radix_select_plain)
+from tandem_tpu_torch.ops.edge_kth import (discard_ranks, edge_filter,
+                                           edge_filter_plain, edge_kth_plain,
+                                           edge_kth_value, radix_select_plain)
 
 KINDS = ["random", "tied", "border", "heavy"]
 
@@ -116,7 +116,7 @@ def test_edge_filter_matches_jax(kind, discard):
     np.testing.assert_array_equal(out.depth.numpy(), np.asarray(fd_j))
     np.testing.assert_array_equal(out.conf.numpy(), np.asarray(fc_j))
     edge = edge_kth_plain(torch.from_numpy(depth)).numpy().reshape(2, -1)
-    ks = _cutoff(torch.from_numpy(disc), edge.shape[1])
+    ks = discard_ranks(torch.from_numpy(disc), edge.shape[1])
     exact = [np.sort(edge[b])[k] for b, k in enumerate(ks)]
     np.testing.assert_array_equal(_bits(out.threshold.numpy()), _bits(exact))
 
@@ -126,7 +126,7 @@ def test_heavy_case_is_one_where_the_jax_threshold_is_inexact():
     threshold is not the k-th value, so they test the mask, not it."""
     edge = edge_kth_plain(torch.from_numpy(_depth_case("heavy")))
     edge = edge.numpy().reshape(2, -1)
-    ks = _cutoff(torch.tensor([10.0, 25.0]), edge.shape[1])
+    ks = discard_ranks(torch.tensor([10.0, 25.0]), edge.shape[1])
     jax_thres = np.asarray(_kth_value(jnp.asarray(edge),
                                       jnp.asarray(ks, jnp.int32)))
     assert jax_thres[0] > np.sort(edge[0])[ks[0]]

@@ -45,7 +45,8 @@ from tandem_tpu_torch.models import metrics as pmetrics
 from tandem_tpu_torch.models.convert import flax_to_state_dict
 from tandem_tpu_torch.ops.bilinear_sample import (warp_sample,
                                                   warp_sample_grad,
-                                                  warp_sample_grad_plain)
+                                                  warp_sample_grad_plain,
+                                                  warp_sample_plain)
 from tandem_tpu_torch.ops.warp import plane_sweep_warp, ref_to_src_matrix
 from tandem_tpu_torch.train import trainer as pt
 from tandem_tpu_torch.train import utils as putils
@@ -253,14 +254,15 @@ GRAD_SHAPES = {"stage1": (48, 15, 20, 32), "stage2": (4, 30, 40, 16),
 @pytest.mark.parametrize("stage", STAGES)
 def test_sample_gradient_matches_jax_autodiff(stage):
     """The plain sample's gradient (autograd of warp_sample_plain, and
-    warp_sample_grad's plain version) equals jax.grad of the JAX package's
-    plane_sweep_warp with respect to the source features, at the three
-    stage shapes (small), with part of the sweep behind the source camera
-    and outside its image: 5e-5 of the largest |gradient|. The two
-    packages compute the ref->src matrix in another order, which moves the
-    positions by ~1e-5 px (the forwards differ by up to 3e-5 of the largest
-    |feature|; JAX's eager and jitted gradients by 1.9e-5 of the largest).
-    The port's two plain gradients (autograd, and the scatter of
+    warp_sample_grad's plain version, which the op's registered autograd
+    runs on the CPU) equals jax.grad of the JAX package's plane_sweep_warp
+    with respect to the source features, at the three stage shapes
+    (small), with part of the sweep behind the source camera and outside
+    its image: 5e-5 of the largest |gradient|. The two packages compute
+    the ref->src matrix in another order, which moves the positions by
+    ~1e-5 px (the forwards differ by up to 3e-5 of the largest |feature|;
+    JAX's eager and jitted gradients by 1.9e-5 of the largest). The
+    port's two plain gradients (autograd, and the scatter of
     ``warp_sample_grad``) agree within 1e-6 of it."""
     D, Hs, Ws, C = GRAD_SHAPES[stage]
     rng = np.random.RandomState(11)
@@ -289,10 +291,13 @@ def test_sample_gradient_matches_jax_autodiff(stage):
     kw = dict(src_K=torch.tensor(Ks), src_cam_to_world=torch.tensor(src),
               ref_K=torch.tensor(Ks), ref_cam_to_world=torch.tensor(ref))
     out, _ = plane_sweep_warp(f, torch.tensor(depth), with_mask=False, **kw)
-    got, = torch.autograd.grad(out, f, torch.tensor(gout))
+    plain, = torch.autograd.grad(out, f, torch.tensor(gout))
     mat = ref_to_src_matrix(kw["src_K"], kw["src_cam_to_world"], kw["ref_K"],
                             kw["ref_cam_to_world"])
-    plain = warp_sample_grad(torch.tensor(gout), mat, torch.tensor(depth))
+    got, = torch.autograd.grad(warp_sample_plain(f, mat, torch.tensor(depth)),
+                               f, torch.tensor(gout))
+    assert torch.equal(plain, warp_sample_grad(torch.tensor(gout), mat,
+                                               torch.tensor(depth)))
     top = np.abs(want).max()
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5 * top)
     np.testing.assert_allclose(plain.numpy(), got.numpy(), rtol=0,
