@@ -5,8 +5,10 @@ coarse tracker tracking against the TSDF model, the SLAM loop (also at
 640x480 with preset=runtime), the C image decoder, tandem_demo with its
 recorder and the debug logs, sinks and 3D viewer, the sensor-depth paths
 (RGB-D tracking with dvo's dense tracker, the TSDF raycast through
-dr_debug_example), the training half (tandem_train, tandem_eval) and the
-deployable unit (tandem_export's model.pt2, served by tandem_dataset).
+dr_debug_example), the training half (tandem_train, tandem_eval), the
+deployable unit (tandem_export's model.pt2, served by tandem_dataset) and
+the multi-card paths on the one card (view shards, data-parallel ranks,
+tandem_train TRAIN.DEVICE mesh).
 
     python3 chip_smoke.py                    # from the root of a checkout
     python3 chip_smoke.py --profile-dir DIR  # + a torch.profiler table of
@@ -184,14 +186,32 @@ Phases, each printing its numbers before the last line:
               gradient (GRAD_TOL, each batch item) and times each call's
               kernel and grid_sample's backward (CUDA events), with the
               samples a touched source cell;
- 16. eval     the port's tandem_eval CLI on replica_mini with the trained
+ 16. parallel the multi-card paths on the one card: MvsnetRunner(devices=
+              [cuda:0] * n), n = 2 and 4, with the trained unit on the
+              golden window against the eager runner: f32 depth within
+              SHARD_FLOOR_X times what one ulp of the input moves the
+              eager forward by, confidence within SHARD_CONF_TOL but for
+              SHARD_FLIP_SHARE of the pixels, the golden MAE <
+              GOLDEN_TOL, bf16 within
+              SHARD_BF16_REL (relative L1), warp_sample 18 launches and
+              the edge filter once a call, the sums' count, payload and
+              ring bytes a card (parallel/collectives); 2 gloo ranks on
+              cuda:0 (abl04 640x480 f32, B = 2 each, DP_STEPS steps,
+              parallel/dryrun) against one process at world_size 2 on the
+              global batch of 4: losses within DP_RTOL, each rank's steps
+              launching the sample and its backward kernel 18 times a step,
+              ms a step; tandem_train TRAIN.DEVICE mesh (an NCCL group of
+              one, 2 steps, one checkpoint);
+ 17. eval     the port's tandem_eval CLI on replica_mini with the trained
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
 the slices, the three tracking paths, the slam runs, the export's replay
 and its weightless tandem_dataset run, the runtime run, the demo and its
 replay, the RGB-D runs, the dr_debug run, the training
-runs and the evals) and read just after it.
+runs, the view-sharded runner calls, the one-process data-parallel
+reference and the evals) and read just after it; the data-parallel ranks
+count their own launches in their processes.
 The last line of stdout is the JSON result; any failed phase exits
 non-zero without it.
 The line before it lists every kernel with its launches on the driven
@@ -1239,10 +1259,12 @@ def load_runner(dev, dtype):
     return runner, pack
 
 
-def _golden_forward(runner, pack, dev):
+def _golden_forward(runner, pack, dev, scale: float = 1.0):
+    """The unit's model on the golden pack (the image times ``scale``)."""
     import torch
     return runner.model(
-        torch.from_numpy(pack["image"].astype(np.float32) / 255.0).to(dev),
+        torch.from_numpy(pack["image"].astype(np.float32) / 255.0
+                         * np.float32(scale)).to(dev),
         [torch.from_numpy(pack[k]).to(dev) for k in ("K1", "K2", "K3")],
         torch.from_numpy(pack["cam_to_world"]).to(dev),
         torch.from_numpy(pack["depth_min"]).to(dev),
@@ -3593,6 +3615,244 @@ def phase_train(dev) -> dict:
     return paths
 
 
+# The parallel phase: view shards of one forward, and the tuples of the
+# trajectory fixture that make the data-parallel global batch of 4.
+SHARD_COUNTS = (2, 4)
+# f32, against the eager runner. The shards' FeatureNets see fewer images
+# and the volumes are summed in another order, so the depth moves by what
+# f32 rounding moves this cascade. The phase measures that floor, what one
+# ulp of the input image moves the eager forward's dense depth by, and
+# holds the shards' depth within SHARD_FLOOR_X times it (the 5x of
+# tests/test_torch_train.py's gradient bar), never tighter than the atol
+# of tests/test_parallel.py:54-55's (rtol, atol); the pixels over those
+# are counted. At 640x480 on the card that floor is above 1e-4 (2.685e-04
+# against the shards' 3.182e-04 at n = 2 on an NVIDIA H100 80GB HBM3 at
+# 700 W).
+SHARD_FLOOR_X = 5
+SHARD_DEPTH_TOL = (1e-4, 1e-4)
+SHARD_CONF_TOL = (1e-3, 1e-3)
+# The confidence reads the plane at the truncated expected index, and the
+# filter keeps a rank of the edge values: where the last bits cross either
+# cut, a pixel's confidence jumps or the pixel is kept by one runner only.
+# At most this share of the pixels may (the CPU rehearsal at 512x320: 3
+# and 2 of 163,840).
+SHARD_FLIP_SHARE = 1e-4
+SHARD_REPS = 3               # runner calls timed a runner, in turns
+# bf16: the JAX dry run's bar (__graft_entry__.py:249) on the relative L1
+# error, mean |d - d0| / mean |d0|. Its max |d - d0| / max |d0| is not
+# held at 640x480 with the trained weights: there bf16 itself moves some
+# pixels by ~25% (the CPU rehearsal at 512x320: the eager bf16 runner
+# against the f32 one 2.4e-1 by max, 2.0e-2 by L1; the sums' order, the
+# shards against the eager bf16 runner, 8.5e-2 and 6.2e-3).
+SHARD_BF16_REL = 2e-2
+DP_TUPLES = (0, 3, 7, 10)
+DP_SIZE = (480, 640)
+DP_STEPS = 3
+DP_RTOL = 5e-3               # tests/test_train_learns.py:161, the JAX gate
+
+
+def _all_counts(part: dict) -> dict:
+    return {name: part.get(name, 0) for name in KERNELS}
+
+
+def _runner_outputs(runner, pack) -> dict:
+    """One runner call on the golden pack's window, as numpy."""
+    bgrs, poses, _ = golden_window(pack)
+    runner.call_async(bgrs, poses, pack["K3"][0],
+                      float(pack["depth_min"][0]), float(pack["depth_max"][0]),
+                      float(pack["discard_percentage"]))
+    return runner.get_result()
+
+
+def _view_shards(dev, dtype, paths: dict) -> None:
+    """The trained unit's view-sharded runner on [cuda:0] * n against the
+    eager runner on the golden window, with its launches and sums."""
+    import torch
+
+    from tandem_tpu_torch.models.convert import load_variables
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.parallel import collectives
+    from tandem_tpu_torch.pipeline.mvsnet_runner import MvsnetRunner
+    dn = str(dtype).split(".")[-1]
+    eager, pack = load_runner(dev, dtype)
+    want = _runner_outputs(eager, pack)
+    if dtype == torch.float32:
+        base = _golden_forward(eager, pack, dev).stage3.depth_dense
+        nudged = _golden_forward(eager, pack, dev,
+                                 1 + 2 ** -23).stage3.depth_dense
+        floor = float((nudged - base).abs().max())
+    with open(UNIT / "model_config.json") as f:
+        cfg = json.load(f)
+    variables = load_variables(UNIT / "model_variables.pkl")
+    H, W, V = eager.height, eager.width, eager.view_num
+    for n in SHARD_COUNTS:
+        runner = MvsnetRunner(CvaMVSNet(**cfg, dtype=dtype), variables, H, W,
+                              view_num=V, devices=[dev] * n)
+        torch.cuda.synchronize()
+        reset_counts()
+        calls = edge_calls()
+        with collectives.record() as payloads:
+            got = _runner_outputs(runner, pack)
+        counts, calls = read_counts(), edge_calls() - calls
+        paths[f"parallel_view_{dn}_n{n}"] = counts
+        if counts["bilinear_sample"] != 18:
+            raise AssertionError(f"view shards {dn} n={n}: warp_sample "
+                                 f"launched {counts['bilinear_sample']} "
+                                 "times, want 18")
+        edge = require_edge_filter(f"view shards {dn} n={n}",
+                                   counts["edge_kth"], calls, 1)
+        link = collectives.link_bytes_per_card(payloads, n)
+        ms = [], []
+        for _ in range(SHARD_REPS):
+            for r, out in ((eager, ms[0]), (runner, ms[1])):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _runner_outputs(r, pack)
+                out.append((time.perf_counter() - t0) * 1e3)
+        d, d0 = got["depth_dense"], want["depth_dense"]
+        if dtype == torch.float32:
+            def over(a, b, tol):
+                return np.abs(a - b) > tol[1] + tol[0] * np.abs(b)
+            kept, kept0 = got["depth"] > 0, want["depth"] > 0
+            both = kept & kept0
+            deep = over(d, d0, SHARD_DEPTH_TOL).sum() + over(
+                got["depth"][both], want["depth"][both], SHARD_DEPTH_TOL).sum()
+            gap = max(float(np.abs(d - d0).max()), float(np.abs(
+                got["depth"][both] - want["depth"][both]).max()))
+            bar = max(SHARD_DEPTH_TOL[1], SHARD_FLOOR_X * floor)
+            cgap = np.abs(got["confidence_dense"] - want["confidence_dense"])
+            flips = over(got["confidence_dense"], want["confidence_dense"],
+                         SHARD_CONF_TOL)
+            mae = {k: float(np.abs(got[k] - pack[f"out.stage3.{k}"]).mean())
+                   for k in ("depth", "confidence", "depth_dense",
+                             "confidence_dense")}
+            worst = max(mae.values())
+            verdict = (
+                f"depth max {gap:.3e} (dense, and filtered where both keep "
+                f"a pixel; bar {bar:.3e}: {SHARD_FLOOR_X} x the {floor:.3e} "
+                f"that one ulp of the input moves the eager forward's by), "
+                f"{int(deep)} px over rtol/atol {SHARD_DEPTH_TOL}; "
+                f"confidence max {float(cgap.max()):.3e}, "
+                f"{int(flips.sum())} px over {SHARD_CONF_TOL}; "
+                f"{int((kept != kept0).sum())} px kept by one runner only; "
+                f"golden worst MAE {worst:.3e} (bar {GOLDEN_TOL})")
+            ok = (gap <= bar and flips.mean() <= SHARD_FLIP_SHARE
+                  and (kept != kept0).mean() <= SHARD_FLIP_SHARE
+                  and worst < GOLDEN_TOL)
+        else:
+            rel = float(np.abs(d - d0).mean() / np.abs(d0).mean())
+            top = float(np.abs(d - d0).max() / np.abs(d0).max())
+            verdict = (f"dense depth relative L1 error {rel:.3e} against "
+                       f"the eager bf16 runner's (bar {SHARD_BF16_REL}; by "
+                       f"max {top:.3e})")
+            ok = rel < SHARD_BF16_REL
+        log(f"[parallel] {card_label_once()} view shards {dn} abl04 {W}x{H} "
+            f"V={V} over [cuda:0] x {n}: {verdict}; warp_sample 18 "
+            f"launches, {edge}; {link['n_collectives']} sums, payload "
+            f"{link['payload_bytes'] / 1e6:.3f} MB, ring "
+            f"{link['link_bytes'] / 1e6:.3f} MB a card across {n} cards; "
+            f"ms a runner call (host clock, in turns; {n} shards in turn on "
+            f"one card, not a speed) eager {[round(x, 3) for x in ms[0]]}, "
+            f"sharded {[round(x, 3) for x in ms[1]]}")
+        if not ok:
+            raise AssertionError(f"view shards {dn} n={n}: {verdict}")
+        del runner
+    del eager
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(dev) -> dict:
+    """The multi-card paths on the one card: the trained unit's
+    view-sharded runner over [cuda:0] * 2 and * 4 against the eager runner
+    (f32: depth within SHARD_FLOOR_X times the cascade's one-ulp floor,
+    confidence within SHARD_CONF_TOL but for SHARD_FLIP_SHARE of the
+    pixels, the golden MAE under GOLDEN_TOL;
+    bf16: within SHARD_BF16_REL), with its launches and sums; 2 gloo ranks
+    on cuda:0 (abl04 640x480 f32, 2 rows each of the trajectory fixture's
+    tuples DP_TUPLES, DP_STEPS steps) against one process at world_size 2
+    on the global batch of 4 (losses within DP_RTOL), each rank's steps
+    launching the sample and its backward kernel 18 times a step; and
+    tandem_train TRAIN.DEVICE mesh, an NCCL group of one, 2 steps with its
+    checkpoint."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.cli import tandem_train
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    from tandem_tpu_torch.parallel.dryrun import (run_ranks, train_rank,
+                                                  train_steps)
+    from tandem_tpu_torch.train import trainer as pt
+    paths = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        _view_shards(dev, dtype, paths)
+
+    config = pcfg.default()
+    pcfg.merge_from_file(config, str(REPO / "tandem_tpu_torch" / "configs"
+                                     / "abl04_fewer_depth_planes.yaml"))
+    ds = MVSDataset(str(TRAIN_ROOT), "val", height=DP_SIZE[0],
+                    width=DP_SIZE[1])
+    items = collate([ds[i] for i in DP_TUPLES])
+    batch = {k: items[k] for k in pt.BATCH_KEYS}
+    torch.cuda.synchronize()
+    reset_counts()
+    one = train_steps(config, batch, DP_STEPS, dev, world_size=2)
+    paths["parallel_dp_one_process"] = read_counts()
+    torch.cuda.empty_cache()
+    work = Path(tempfile.mkdtemp(prefix="parallel_"))
+    try:
+        ranks = run_ranks(train_rank, 2, work / "dp",
+                          (config, batch, DP_STEPS, str(dev),
+                           "gloo"), timeout=600)
+        for r, res in enumerate(ranks):
+            paths[f"parallel_dp_rank{r}"] = _all_counts(res["launches"])
+            _require_step_launches(f"parallel rank {r}",
+                                   _all_counts(res["launches"]), DP_STEPS,
+                                   18)
+        gap = np.abs(np.array(ranks[0]["losses"]) / one["losses"] - 1)
+        log(f"[parallel] {card_label_once()} data-parallel abl04 640x480 "
+            f"f32, 2 gloo ranks on cuda:0 (B=2 each) vs one process at "
+            f"world_size 2 (B=4), {DP_STEPS} steps: losses "
+            f"{[round(x, 6) for x in ranks[0]['losses']]} (rank 1 "
+            f"{[round(x, 6) for x in ranks[1]['losses']]}) vs "
+            f"{[round(x, 6) for x in one['losses']]}, worst relative gap "
+            f"{float(gap.max()):.2e} (bar {DP_RTOL}); each rank's steps "
+            f"launched warp_sample and warp_sample_grad 18 times a step; ms "
+            f"a step (host clock, synchronized) one process B=4 "
+            f"{[round(x, 1) for x in one['ms']]}, rank 0 "
+            f"{[round(x, 1) for x in ranks[0]['ms']]}, rank 1 "
+            f"{[round(x, 1) for x in ranks[1]['ms']]} (two ranks sharing "
+            "one card over gloo: not a speed)")
+        if not gap.max() <= DP_RTOL:
+            raise AssertionError(f"data-parallel losses {ranks[0]['losses']}"
+                                 f" vs one process {one['losses']}")
+
+        argv = [str(work / "mesh"), "--config",
+                str(REPO / "tandem_tpu_torch" / "configs"
+                    / "abl04_fewer_depth_planes.yaml"),
+                "DATA.ROOT_DIR", str(TRAIN_ROOT), "TRAIN.EPOCHS", "1",
+                "TRAIN.MAX_STEPS", "2", "IO.LOG_INTERVAL", "1",
+                "TRAIN.DEVICE", "mesh"]
+        t0 = time.perf_counter()
+        res = tandem_train.main(tandem_train.parser.parse_intermixed_args(
+            argv))
+        secs = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(work / "mesh" / "ckpt"))
+        log(f"[parallel] tandem_train TRAIN.DEVICE mesh (one rank a card: "
+            f"{torch.cuda.device_count()}, NCCL) abl04 640x480 B=2: "
+            f"{res['steps']} steps, losses "
+            f"{[round(x, 4) for x in res['losses']]}, checkpoints {ckpts}, "
+            f"{secs:.1f} s with the rank's start")
+        if res["steps"] != 2 or ckpts != ["step_00000002"] \
+                or not np.isfinite(res["losses"]).all():
+            raise AssertionError(f"tandem_train mesh: {res}, {ckpts}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return paths
+
+
 def phase_eval(dev) -> dict:
     """The port's tandem_eval CLI on replica_mini with the trained
     512x320 unit at 512x320, tuple 0, at both architectures: stage abs_rel
@@ -3723,6 +3983,8 @@ def main() -> int:
     lap("dr_debug")
     paths.update(phase_train(dev))
     lap("train")
+    paths.update(phase_parallel(dev))
+    lap("parallel")
     paths.update(phase_eval(dev))
     lap("eval")
     log(f"[time] seconds a phase (host clock): {laps}")

@@ -222,22 +222,46 @@ def default() -> Dict[str, Any]:
     return load(DEFAULT_CONFIG_FILE)
 
 
-def train_device(config: Mapping[str, Any]):
-    """The torch device of ``TRAIN.DEVICE``: ``cuda`` (the current card) or
-    ``cpu``. Data parallelism across cards (``mesh``, ``multihost``) is not
-    ported yet."""
+def rendezvous(environ: Mapping[str, str] = os.environ):
+    """``TRAIN.DEVICE multihost``'s process group from the environment:
+    (init_method, world, rank). The JAX CLI's variables first
+    (``TANDEM_COORDINATOR`` host:port, ``TANDEM_NUM_PROCESSES``,
+    ``TANDEM_PROCESS_ID``; tandem_tpu/cli/tandem_train.py:64-74), else
+    torchrun's (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+    ``WORLD_SIZE``)."""
+    if environ.get("TANDEM_COORDINATOR"):
+        return (f"tcp://{environ['TANDEM_COORDINATOR']}",
+                int(environ["TANDEM_NUM_PROCESSES"]),
+                int(environ["TANDEM_PROCESS_ID"]))
+    if environ.get("MASTER_ADDR") and environ.get("WORLD_SIZE"):
+        return (f"tcp://{environ['MASTER_ADDR']}:{environ['MASTER_PORT']}",
+                int(environ["WORLD_SIZE"]), int(environ["RANK"]))
+    raise RuntimeError(
+        "TRAIN.DEVICE multihost: no rendezvous in the environment; set "
+        "TANDEM_COORDINATOR, TANDEM_NUM_PROCESSES and TANDEM_PROCESS_ID "
+        "(or launch with torchrun)")
+
+
+def train_device(config: Mapping[str, Any], rank: int = 0):
+    """The torch device of ``TRAIN.DEVICE`` for data-parallel rank
+    ``rank``: ``cuda`` the current card, ``cpu`` the CPU, ``mesh`` card
+    ``rank`` (one rank a visible card), ``multihost`` card ``LOCAL_RANK``
+    (torchrun's) or ``rank``, modulo the visible cards; under
+    ``TANDEM_PLATFORM=cpu`` (the JAX launcher's variable) multihost ranks
+    run on the CPU. Every mode but ``cpu`` raises without a card."""
     import torch
     mode = config["TRAIN.DEVICE"]
-    if mode in ("mesh", "multihost"):
-        raise NotImplementedError(
-            f"TRAIN.DEVICE {mode}: data parallelism across cards is not "
-            "ported yet (ROADMAP Queue 1 item 7); use cuda or cpu")
-    if mode == "cpu":
+    if mode not in ("cpu", "cuda", "mesh", "multihost"):
+        raise ValueError(f"TRAIN.DEVICE {mode!r}: tandem_tpu_torch trains "
+                         "on cuda, cpu, mesh or multihost")
+    if mode == "cpu" or (mode == "multihost" and os.environ.get(
+            "TANDEM_PLATFORM") == "cpu"):
         return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"TRAIN.DEVICE {mode}: no CUDA device; pass "
+                           "TRAIN.DEVICE cpu to train on the CPU")
     if mode == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("TRAIN.DEVICE cuda: no CUDA device; pass "
-                               "TRAIN.DEVICE cpu to train on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
-    raise ValueError(f"TRAIN.DEVICE {mode!r}: tandem_tpu_torch trains on "
-                     "cuda or cpu")
+    if mode == "multihost":
+        rank = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", rank % torch.cuda.device_count())

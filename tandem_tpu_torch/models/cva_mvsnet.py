@@ -180,28 +180,47 @@ class CvaMVSNet(nn.Module):
         ref_p2w = ref_pixel_to_world(K, ref_c2w)
         # Views are accumulated one at a time: a per-view (B, D, H, W, C)
         # volume is never stacked (118 MB each at stage 1, 640x480).
-        acc = sq_acc = None
+        acc = None
         for v in range(1, V):
             warped, _ = plane_sweep_warp(
                 features[:, v], depth_in, src_K=K,
                 src_cam_to_world=cam_to_world[:, v], ref_K=K,
                 ref_cam_to_world=ref_c2w, with_mask=False, ref_p2w=ref_p2w)
-            warped = warped.to(self.dtype)
-            if gate is not None:
-                diff_sq = (warped - ref_volume) ** 2
-                term = (gate(diff_sq, train)[..., None] + 1.0) * diff_sq
-                acc = term if acc is None else acc + term
-            else:
-                acc = warped if acc is None else acc + warped
-                sq = warped ** 2
-                sq_acc = sq if sq_acc is None else sq_acc + sq
-        if gate is not None:
-            volume = acc / (V - 1.0)
-        else:
-            vol_sum = ref_volume + acc
-            vol_sq_sum = ref_volume ** 2 + sq_acc
-            volume = vol_sq_sum / V - (vol_sum / V) ** 2
+            terms = self._view_contrib(warped, ref_volume, gate, train)
+            acc = list(terms) if acc is None else [
+                a + t for a, t in zip(acc, terms)]
+        volume = self._finalize_volume(acc, ref_volume, V,
+                                       gated=gate is not None)
         return self._depth_head(volume, depth_in, cost_reg, train)
+
+    def _view_contrib(self, warped, ref_volume, gate: Optional[VolumeGate],
+                      train: bool = False) -> Tuple[torch.Tensor, ...]:
+        """One source view's cost-volume contribution (module.py:1060-1090):
+        gated -> ((reweight + 1) * diff^2,); variance -> (warped,
+        warped^2). The monolithic stage and the view-sharded forward
+        (parallel/view_shard.py) share it."""
+        warped = warped.to(self.dtype)
+        if gate is not None:
+            diff_sq = (warped - ref_volume) ** 2
+            return (self._gate_term(diff_sq, gate, train),)
+        return (warped, warped ** 2)
+
+    @staticmethod
+    def _gate_term(diff_sq, gate: VolumeGate, train: bool = False):
+        """Adaptive view-aggregation reweighting of one view's diff^2
+        volume: (reweight + 1) * diff^2 (module.py:1075-1082)."""
+        return (gate(diff_sq, train)[..., None] + 1.0) * diff_sq
+
+    @staticmethod
+    def _finalize_volume(acc, ref_volume, V, gated: bool):
+        """The summed per-view contributions -> the cost volume. ``V``
+        counts all views, the reference's included (a number, or a
+        summed count on the sharded path)."""
+        if gated:
+            return acc[0] / (V - 1.0)
+        vol_sum = ref_volume + acc[0]
+        vol_sq_sum = ref_volume ** 2 + acc[1]
+        return vol_sq_sum / V - (vol_sum / V) ** 2
 
     @staticmethod
     def _depth_head(volume, depth_in, cost_reg: CostRegNet,

@@ -29,6 +29,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import collectives
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.9
 
@@ -47,17 +49,45 @@ def apply_bn(x, bn, dtype):
     return x * inv.reshape(shape) + off.reshape(shape)
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """A sum over the ranks of the default process group whose gradient
+    is the sum of the ranks' gradients: every rank's loss reads the summed
+    value, so each rank's input feeds every rank's loss."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return collectives.all_reduce_sum(x.clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return collectives.all_reduce_sum(grad.clone())
+
+
 def batch_norm_train(x, bn):
     """flax's training BatchNorm (``use_fast_variance=True``) on channel
     axis 1 of x, in float32: the batch mean and the biased variance
     E[x^2] - E[x]^2 (clipped at 0), y = (x - mean) * (rsqrt(var + eps) *
     scale) + bias; ``bn``'s running statistics become
     0.9 * running + 0.1 * batch (torch's own update would use the
-    unbiased variance and weigh the batch by its ``momentum``)."""
+    unbiased variance and weigh the batch by its ``momentum``).
+
+    Under a process group (data-parallel training) the statistics are
+    the global batch's, as in the JAX package's sharded step: each
+    channel's sums of x and x^2 and the element count are summed over the
+    ranks (one all-reduce, differentiable), so every rank normalizes with,
+    and keeps, the same statistics."""
     xf = x.float()
     dims = [0] + list(range(2, x.dim()))
-    mean = xf.mean(dims)
-    mean2 = (xf * xf).mean(dims)
+    if collectives.in_group():
+        count = torch.full((1,), xf.numel() / xf.shape[1],
+                           device=xf.device)
+        sums = _SumOverRanks.apply(torch.cat([xf.sum(dims),
+                                              (xf * xf).sum(dims), count]))
+        C = xf.shape[1]
+        mean, mean2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+    else:
+        mean = xf.mean(dims)
+        mean2 = (xf * xf).mean(dims)
     var = torch.clamp(mean2 - mean * mean, min=0.0)
     with torch.no_grad():
         bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean

@@ -19,6 +19,9 @@ Input packing parity (dr_mvsnet.cpp:180-250):
 
 ``ExportedRunner`` serves the same protocol from a unit's ``model.pt2``
 (``cli/tandem_export``) without the weights or the model's code.
+``MvsnetRunner(..., devices=[...])`` serves it from the view-sharded
+forward (``parallel/view_shard.py``), the counterpart of the JAX runner's
+``mesh=``; the edge filter then runs on the first device.
 
 The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
 float32, or bfloat16 as the JAX runtime deploys it); the depth and
@@ -35,6 +38,7 @@ import torch
 from ..core.camera import stage_intrinsics_runtime
 from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
+from ..models.edge_filter import filter_edges
 from ..native_bridge import bgr_pack_u8
 
 
@@ -42,18 +46,29 @@ class MvsnetRunner:
     """Fixed-shape CVA-MVSNet inference with async dispatch."""
 
     def __init__(self, model: CvaMVSNet, variables: dict, height: int,
-                 width: int, view_num: int = 7, device="cuda"):
+                 width: int, view_num: int = 7, device="cuda",
+                 devices=None):
         """:param variables: the JAX package's numpy parameter tree
         ({'params', 'batch_stats'}), e.g. ``models.convert.load_variables``
         of an exported unit.
         :param device: the card by default; ``"cpu"`` only when asked (the
-            CPU tests). Without a card the default raises."""
-        self._start(device, height, width, view_num)
+            CPU tests). Without a card the default raises.
+        :param devices: a list of devices, one view shard each (a device
+            may repeat): the cascade runs view-sharded
+            (``parallel.build_view_sharded_forward``) and ``devices[0]``
+            is the runner's device in place of ``device``."""
+        self._start(devices[0] if devices else device, height, width,
+                    view_num)
         model.load_state_dict(convert.flax_to_state_dict(
             variables, view_aggregation=model.view_aggregation))
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype
-        self._forward = Stage3Forward(self.model)
+        if devices:
+            from ..parallel import build_view_sharded_forward
+            self._forward = _ShardedStage3(
+                build_view_sharded_forward(self.model, devices))
+        else:
+            self._forward = Stage3Forward(self.model)
 
     def _start(self, device, height: int, width: int, view_num: int):
         """The protocol's state: the device, the shapes, the 255 divisor
@@ -172,6 +187,22 @@ class MvsnetRunner:
         return result
 
 
+class _ShardedStage3:
+    """``Stage3Forward``'s contract from the view-sharded forward: the
+    stage-3 pair, then the edge filter on the first device
+    (tandem_tpu/pipeline/mvsnet_runner.py:297-301)."""
+
+    def __init__(self, sharded):
+        self.sharded = sharded
+
+    def __call__(self, image, K1, K2, K3, cam_to_world, depth_min,
+                 depth_max, discard_percentage):
+        depth, conf = self.sharded(image, (K1, K2, K3), cam_to_world,
+                                   depth_min, depth_max)
+        filtered = filter_edges(depth, discard_percentage, conf)
+        return filtered.depth, filtered.conf, depth, conf
+
+
 class ExportedRunner(MvsnetRunner):
     """The ``MvsnetRunner`` protocol served from a unit's ``model.pt2``
     alone (the counterpart of the JAX package's ``StablehloRunner``): the
@@ -182,9 +213,18 @@ class ExportedRunner(MvsnetRunner):
     the deployment's (1, V, 3, H, W)."""
 
     def __init__(self, unit_dir: str, height: int, width: int,
-                 view_num: int = 7, device=None):
+                 view_num: int = 7, device=None, devices=None):
         """:param device: by default the device the program was exported
-            for; another raises."""
+            for; another raises.
+        :param devices: not served: an exported program has fixed shapes
+            and runs whole on its one device, so it cannot be split into
+            view shards (``MvsnetRunner(devices=...)`` serves the weights
+            that way)."""
+        if devices is not None:
+            raise ValueError(
+                "ExportedRunner serves one device: the exported program has "
+                "fixed shapes and cannot be view-sharded; use "
+                "MvsnetRunner(model, variables, ..., devices=[...])")
         from ..cli.tandem_export import load_program
 
         program, dev = load_program(unit_dir, device)

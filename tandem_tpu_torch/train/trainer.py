@@ -1,8 +1,6 @@
-"""Single-device trainer of CVA-MVSNet.
+"""Trainer of CVA-MVSNet, on one device or data-parallel over ranks.
 
-Port of ``tandem_tpu/train/trainer.py:33-256`` without the mesh
-(``make_mesh``, ``shard_batch`` and ``host_local`` belong to data
-parallelism across cards, ROADMAP Queue 1 item 7):
+Port of ``tandem_tpu/train/trainer.py:33-256``:
 
 - ``lr_schedule``: linear decay from LR to LR * final_fraction over the
   total steps (tandem.py:87-94) with a warmup of int(500 * 16 / batch)
@@ -18,6 +16,21 @@ parallelism across cards, ROADMAP Queue 1 item 7):
 - ``make_train_step``: one optimizer step on a batch, with SAM's two
   passes when TRAIN.SAM is set (module.py:1568-1629, adaptive=False);
 - ``make_eval_step``: the eval forward and the per-sample errors.
+
+Data parallelism, the counterpart of the JAX ``data`` mesh: one process a
+rank (``init_process_group``: NCCL on cards, gloo on the CPU or where
+ranks share a card). Every rank builds, and augments, the same global
+batch from the same seeds and keeps its rows (``shard_batch``, the JAX
+"same global batch on every process" discipline); the training
+BatchNorms take the global batch's statistics (``layers.batch_norm_train``);
+after each backward the gradients are averaged over the ranks with one
+flattened all-reduce, before SAM's perturbation (whose norm is then the
+global gradient's) and before Adam; the loss and the metrics are rank
+means, which equal the global batch's means as the shards have equal
+sizes, so every rank holds them and reads them locally (what ``host_local``
+does for the JAX package's replicated metrics). DDP's bucketed overlap of
+the all-reduce with the backward is not used: one explicit average is
+exact and countable.
 
 A step leaves the BatchNorm running statistics where flax's mutable
 ``batch_stats`` would: updated by the (last) forward pass from the state's
@@ -37,6 +50,7 @@ import torch.nn as nn
 from ..models.cva_mvsnet import STAGES, CvaMVSNet, outputs_to_dict
 from ..models.losses import compute_loss
 from ..models.metrics import eval_errors
+from ..parallel import collectives
 
 # The keys of a batch that a step reads.
 BATCH_KEYS = ("image", "cam_to_world", "depth_min", "depth_max",
@@ -167,14 +181,68 @@ def loss_config(config: Dict[str, Any]) -> Dict[str, Tuple]:
                 term_weights=tuple(config["LOSS.TERM_WEIGHTS"]))
 
 
+def init_process_group(device: torch.device, init_method: str,
+                       world: int, rank: int, backend: str = None):
+    """Join the data-parallel ranks: NCCL when each rank has its own card,
+    gloo on the CPU; pass ``backend="gloo"`` where ranks share a card
+    (NCCL refuses two ranks on one device). ``init_method`` is a
+    ``tcp://host:port`` or ``file://`` rendezvous."""
+    import datetime
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(
+        backend or ("nccl" if device.type == "cuda" else "gloo"),
+        init_method=init_method, world_size=world, rank=rank,
+        timeout=datetime.timedelta(minutes=10))
+
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a rendezvous of local ranks."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def shard_batch(batch: Dict, rank: int, world: int) -> Dict:
+    """This rank's rows of a global batch (numpy arrays or tensors, nested
+    dicts): the batch axis split into ``world`` equal parts."""
+    def rows(v):
+        if isinstance(v, dict):
+            return {k: rows(x) for k, x in v.items()}
+        n = v.shape[0] // world
+        return v[rank * n:(rank + 1) * n]
+    return {k: rows(v) for k, v in batch.items()}
+
+
+def _rank_mean(tensors):
+    """Each tensor's mean over the ranks, with one flattened all-reduce."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    flat = collectives.all_reduce_sum(flat) / torch.distributed \
+        .get_world_size()
+    out, i = [], 0
+    for t in tensors:
+        out.append(flat[i:i + t.numel()].reshape(t.shape).to(t.dtype))
+        i += t.numel()
+    return out
+
+
 def loss_and_grads(model: CvaMVSNet, batch: Dict, loss_cfg: Dict):
     """One training forward and backward: the parameters' ``.grad`` hold
-    the gradient of the total loss; returns (loss, losses, outputs)."""
+    the gradient of the total loss (under a process group: of the global
+    batch's, the ranks' gradients averaged); returns (loss, losses,
+    outputs), this rank's."""
     for p in model.parameters():
         p.grad = None
     out = forward_outputs(model, batch, train=True)
     loss, losses = compute_loss(out, batch, **loss_cfg)
     loss.backward()
+    if collectives.in_group():
+        params = list(model.parameters())
+        grads = _rank_mean([torch.zeros_like(p) if p.grad is None
+                            else p.grad for p in params])
+        for p, g in zip(params, grads):
+            p.grad = g
     return loss, losses, out
 
 
@@ -189,8 +257,9 @@ def make_train_step(model: CvaMVSNet, config: Dict[str, Any],
     """``step(state, batch) -> (state, metrics)``: one optimizer step (and
     one LR-schedule step). ``metrics`` holds detached tensors on the
     batch's device (no host read): the loss terms, the stage errors under
-    "stage/name" when ``with_metrics``, and the outputs under "_outputs"
-    when ``with_outputs``."""
+    "stage/name" when ``with_metrics`` (under a process group both are
+    the global batch's), and this rank's outputs under "_outputs" when
+    ``with_outputs``."""
     loss_cfg = loss_config(config)
     sam_rho = float(config.get("TRAIN.SAM_RHO", 0.05))
     use_sam = bool(config.get("TRAIN.SAM", False))
@@ -228,6 +297,8 @@ def make_train_step(model: CvaMVSNet, config: Dict[str, Any],
                 errs = eval_errors(out, batch)
             metrics.update({f"{s}/{k}": v for s, d in errs.items()
                             for k, v in d.items()})
+        if collectives.in_group():
+            metrics = dict(zip(metrics, _rank_mean(list(metrics.values()))))
         if with_outputs:
             metrics["_outputs"] = {s: {k: v.detach() for k, v in d.items()}
                                    for s, d in out.items()}

@@ -1262,3 +1262,87 @@ def test_demo_with_the_unit_on_card(dev, tmp_path):
                          "desired_immature_density=512"], device=dev)
     assert ((tmp_path / "replay" / "poses_dso.txt").read_bytes()
             == (tmp_path / "demo" / "poses_dso.txt").read_bytes())
+
+
+def test_view_sharded_forward_on_card(dev):
+    """The view-sharded forward over [cuda:0] * n (n = 2, 4) against the
+    monolithic forward on the card (random weights, planes (8, 4, 4),
+    64x96, V = 5): depth within 1e-4, confidence within 1e-3, and
+    warp_sample launched once a source view and stage (12) at every n."""
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample
+    from tandem_tpu_torch.parallel import build_view_sharded_forward
+    from tandem_tpu_torch.train.trainer import init_parameters
+    H, W, V = 64, 96, 5
+    model = CvaMVSNet(depth_num=(8, 4, 4), view_aggregation=True)
+    init_parameters(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    rng = np.random.RandomState(1)
+    K = np.array([[60.0, 0, (W - 1) / 2], [0, 60.0, (H - 1) / 2],
+                  [0, 0, 1]], np.float32)
+    Ks = [torch.from_numpy(K * np.array([[s], [s], [1]], np.float32))[None]
+          .to(dev) for s in (0.25, 0.5, 1.0)]
+    c2w = np.tile(np.eye(4, dtype=np.float32), (1, V, 1, 1))
+    c2w[0, :, 0, 3] = 0.05 * np.arange(V)
+    args = (torch.from_numpy(rng.rand(1, V, 3, H, W).astype(np.float32))
+            .to(dev), Ks, torch.from_numpy(c2w).to(dev),
+            torch.full((1,), 0.5, device=dev),
+            torch.full((1,), 6.0, device=dev))
+    ref = model(*args).stage3
+    for n in (2, 4):
+        before = warp_sample.launches
+        d, c = build_view_sharded_forward(model, [dev] * n)(*args)
+        torch.cuda.synchronize()
+        assert warp_sample.launches - before == 3 * (V - 1)
+        torch.testing.assert_close(d, ref.depth, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(c, ref.confidence, rtol=1e-3, atol=1e-3)
+
+
+def test_data_parallel_ranks_share_the_card(dev, tmp_path):
+    """2 gloo ranks on cuda:0 (replica_traj tuples 0, 3, 7, 10 at 64x64,
+    planes (8, 8, 4), 2 rows a rank, 2 steps) against one process at
+    world_size 2 on the global batch on the card: losses within 5e-3
+    relative, equal parameters on both ranks, and each rank's steps
+    launch the sample and its backward kernel 18 times a step."""
+    import os
+
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    from tandem_tpu_torch.parallel.dryrun import (run_ranks, train_rank,
+                                                  train_steps)
+    from tandem_tpu_torch.train import trainer as pt
+    config = pcfg.default()
+    config.update({"MODEL.DEPTH_NUM": (8, 8, 4), "DATA.IMG_HEIGHT": 64,
+                   "DATA.IMG_WIDTH": 64})
+    root = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "replica_traj")
+    items = collate([MVSDataset(root, "val", height=64, width=64)[i]
+                     for i in (0, 3, 7, 10)])
+    batch = {k: items[k] for k in pt.BATCH_KEYS}
+    one = train_steps(config, batch, 2, dev, world_size=2)
+    ranks = run_ranks(train_rank, 2, tmp_path,
+                      (config, batch, 2, "cuda:0", "gloo"), timeout=300)
+    np.testing.assert_allclose(ranks[0]["losses"], one["losses"],
+                               rtol=5e-3)
+    for n, p in ranks[0]["params"].items():
+        assert torch.equal(p, ranks[1]["params"][n]), n
+    for r in ranks:
+        assert r["launches"] == {"bilinear_sample": 36,
+                                 "warp_sample_grad": 36}
+
+
+def test_train_cli_mesh_on_card(dev, tmp_path):
+    """tandem_train TRAIN.DEVICE mesh on the card: one rank a card
+    (spawned, NCCL), 2 steps at 64x96, one checkpoint, finite losses."""
+    import os
+
+    from tandem_tpu_torch.cli import tandem_train
+    root = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "replica_traj")
+    res = tandem_train.main(tandem_train.parser.parse_intermixed_args([
+        str(tmp_path / "run"), "DATA.ROOT_DIR", root, "DATA.IMG_HEIGHT",
+        "64", "DATA.IMG_WIDTH", "96", "MODEL.DEPTH_NUM", "(8, 8, 4)",
+        "TRAIN.EPOCHS", "1", "TRAIN.MAX_STEPS", "2", "TRAIN.NUM_WORKERS",
+        "0", "TRAIN.DEVICE", "mesh"]))
+    assert res["steps"] == 2 and np.isfinite(res["losses"]).all()
+    assert os.listdir(tmp_path / "run" / "ckpt") == ["step_00000002"]

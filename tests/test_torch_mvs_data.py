@@ -92,19 +92,32 @@ def test_config_merges_like_jax():
         pcfg.merge_from_list(pcfg.default(), ["TRAIN.LR"])
 
 
-def test_train_device():
-    """TRAIN.DEVICE: cpu is the CPU; cuda needs a card (this box has none:
-    it raises); mesh and multihost name ROADMAP Queue 1 item 7."""
+def test_train_device(monkeypatch):
+    """TRAIN.DEVICE: cpu is the CPU; cuda, mesh and multihost need a card
+    (without one they raise, naming the CPU switch), but multihost
+    under TANDEM_PLATFORM=cpu trains on the CPU; the multihost rendezvous
+    comes from the JAX CLI's variables or torchrun's."""
     c = pcfg.default()
+    monkeypatch.delenv("TANDEM_PLATFORM", raising=False)
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="TRAIN.DEVICE cpu"):
-            pcfg.train_device(c)
+        for mode in ("cuda", "mesh", "multihost"):
+            c["TRAIN.DEVICE"] = mode
+            with pytest.raises(RuntimeError, match="TRAIN.DEVICE cpu"):
+                pcfg.train_device(c)
     c["TRAIN.DEVICE"] = "cpu"
     assert pcfg.train_device(c) == torch.device("cpu")
-    for mode in ("mesh", "multihost"):
-        c["TRAIN.DEVICE"] = mode
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            pcfg.train_device(c)
+    c["TRAIN.DEVICE"] = "multihost"
+    monkeypatch.setenv("TANDEM_PLATFORM", "cpu")
+    assert pcfg.train_device(c, rank=1) == torch.device("cpu")
+    assert pcfg.rendezvous({"TANDEM_COORDINATOR": "10.0.0.1:1234",
+                            "TANDEM_NUM_PROCESSES": "4",
+                            "TANDEM_PROCESS_ID": "2"}) == \
+        ("tcp://10.0.0.1:1234", 4, 2)
+    assert pcfg.rendezvous({"MASTER_ADDR": "h", "MASTER_PORT": "29500",
+                            "RANK": "1", "WORLD_SIZE": "2"}) == \
+        ("tcp://h:29500", 2, 1)
+    with pytest.raises(RuntimeError, match="TANDEM_COORDINATOR"):
+        pcfg.rendezvous({})
     c["TRAIN.DEVICE"] = "tpu"
     with pytest.raises(ValueError):
         pcfg.train_device(c)

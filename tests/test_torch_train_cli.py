@@ -68,13 +68,13 @@ def test_train_cli_epoch_checkpoint_and_resume(tmp_path):
 
 def test_train_cli_runs_on_the_card_by_default(tmp_path):
     """Without TRAIN.DEVICE the CLI trains on the card; with no card it
-    raises (naming the CPU switch), and mesh names the roadmap item."""
+    raises (naming the CPU switch), and so does mesh (one rank a card)."""
     if torch.cuda.is_available():
         pytest.skip("this checks the CPU-only box's refusal")
     with pytest.raises(RuntimeError, match="TRAIN.DEVICE cpu"):
         tandem_train.main(tandem_train.parser.parse_intermixed_args(
             [str(tmp_path / "a"), *SMALL]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(RuntimeError, match="TRAIN.DEVICE mesh: no CUDA"):
         tandem_train.main(tandem_train.parser.parse_intermixed_args(
             [str(tmp_path / "b"), *SMALL, "TRAIN.DEVICE", "mesh"]))
     with pytest.raises(RuntimeError, match="--device cpu"):
