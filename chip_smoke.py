@@ -51,23 +51,30 @@ Phases, each printing its numbers before the last line:
               times, its byte bound, grid_sample's backward on the
               same grid, the samples a touched cell and its atomics;
               row_gather, also at P4's shape;
-  4. track kernels  K6 track_reduce against a float64 evaluation of its
-              plain version at the tracker's level caps (640x480 level 0,
-              the six 256x192 levels) for B = 1, 5, 15 candidates, within
+  4. track kernels  K6 track_reduce, in the Huber and the Student-t
+              weighting, against a float64 evaluation of its plain version
+              at the tracker's level caps (640x480 level 0, the six
+              256x192 levels) for B = 1, 5, 15 candidates, within
               TRACK_TOL of the largest |entry|; num equal to the plain
-              f32 version's; both times;
-     track lm  the LM kernel track_lm at the same caps and B: (a) one step
-              from a plain state against lm_step_plain in float64 (dx, T_new
-              and the sums within their LM_* tolerances and TRACK_TOL; dx's
-              backward error in its own system; it, active, accept,
-              done and lam equal except at ties within LM_TIE); (b) whole
-              levels: every launch against the plain f32 step from the
-              kernel's own state, lm_level equal to its steps bit for bit,
-              the end point against lm_level_plain on the card (pose within
+              f32 version's; one launch a call; CUDA-event times of both
+              and the kernel's profiler device time;
+     track lm  the LM kernel track_lm (one launch a level) at the same caps
+              and B in both weightings: (a) one step from a plain state
+              (lm_run from the packed state) against lm_step_plain in
+              float64 (dx, T_new and the sums within their LM_*
+              tolerances and TRACK_TOL; dx's backward error in its own
+              system; it, active, accept, done and lam equal except at
+              ties within LM_TIE); (b) whole levels: every step of the
+              kernel's history up to the loop's end against the plain f32
+              step from the kernel's own state, the kernel's result equal
+              to its history's (lm_level_from_history) and its sums at the
+              accepted poses equal to K6's there, bit for bit, the end
+              point against lm_level_plain on the card (pose within
               LM_POSE_PX pixels of the level, aff within LM_AFF_TOL, unless
               the paths parted at a near-tie, never at the 640x480 cap),
-              iteration counts, the kernel's time (and the plain level's
-              at the 640x480 cap);
+              iteration counts, no host read inside a level, the kernel's
+              event and device times (and the plain level's at the 640x480
+              cap);
   5. probes   the torch ports of the three Pallas probe scripts at their
               own shapes (tandem_tpu_torch/experiments), M rows/s;
   6. golden   the trained abl04 unit (exported/tandem, 640x480, V=7)
@@ -88,14 +95,17 @@ Phases, each printing its numbers before the last line:
               from the f32 slice's rendered depth; track_frame on views
               1-6, track_frame_multi with 5 motion candidates and with the
               15 rotation perturbations: ms per frame and LM iterations;
+              with --profile-dir one track_lm launch a level;
   9. culled   on the f32 slice's map and on the wall scene at 640x480,
               integrate_culled and both culled renders equal the full walk
               (torch.equal) at turned cameras; counts and both times;
      sensor 640x480  (times only) dvo's dense_match on level 1 between
               golden view 0 and views 1-6, each view's depth the f32
-              slice's render at its pose; raycast at the 7 golden poses on
-              the slice's map beside render_depth_splat and the march
-              alone; CUDA events, bounds, device events a call;
+              slice's render at its pose; the Student-t track_frame of
+              views 1-6 against the dense reference (track_lm and K6 must
+              launch, track_lm once a level); raycast at the 7 golden
+              poses on the slice's map beside render_depth_splat and the
+              march alone; CUDA events, bounds, device events a call;
  10. golden and slice again in bf16: worst MAE < 1e-1 (10 x the bar, the
               JAX runtime's bf16 boot check), the same render contract;
  11. wall     the TSDF wall contract at 640x480;
@@ -164,7 +174,8 @@ Phases, each printing its numbers before the last line:
               with an SE(3) ATE without scale within RGBD_ATE_BOUND and
               keeps dvo's pose on RGBD_DVO_POSES frames, give or take
               RGBD_DVO_POSES_SLACK; both runs take the dvo branch and
-              launch K6; the unit run calls the backend and its result.txt
+              launch K6 and track_lm (the Student-t LM); the unit run
+              calls the backend and its result.txt
               equals the VO run's first 48 lines; dvo, fallback and kept
               frames, retry ladder firings, FPS, Timer split, host reads a
               frame (VO run), dense_match, calc_res_eval and Student-t LM
@@ -206,7 +217,8 @@ Phases, each printing its numbers before the last line:
               512x320 unit at 48,32,8 and 48,4,4 planes: stage abs_rel
               within EVAL_TOL of tests/test_eval_fixture.py's reference.
 The launch counters are set to 0 just before each driven path (the probes,
-the slices, the three tracking paths, the slam runs, the export's replay
+the slices, the three tracking paths, the Student-t tracking at 640x480,
+the slam runs, the export's replay
 and its weightless tandem_dataset run, the runtime run, the demo and its
 replay, the RGB-D runs, the dr_debug run, the training
 runs, the view-sharded runner calls, the one-process data-parallel
@@ -289,6 +301,15 @@ DEMO_FRAMES = 64
 LM_SOLVE_TOL = 1e-5
 LM_DX_TOL = 1e-2
 LM_SE3_TOL = 2e-6
+# The Student-t step's dx and T_new against the step: within LM_DX_TOL,
+# or within LM_DX_PLAIN_X times the plain f32 step's own distance from
+# the float64 step from the same state, where that is larger. The t
+# weights share one scale, a fixed point of sums whose start takes the
+# residuals at or below their mean: rounding moves the scale and with it
+# every weight, and near convergence dx is a small difference of such
+# weighted sums (the plain f32 step is up to 8.6e-2 off float64 in dx on
+# the CPU at the tracker's caps, against 1.8e-3 with the Huber weights).
+LM_DX_PLAIN_X = 4.0
 # A candidate whose accept or convergence test lies within this relative
 # margin of its threshold in float64 is a tie: f32 sums may decide it
 # either way.
@@ -405,10 +426,12 @@ KERNELS = {
                    "experiments/pallas_shuffle_probe.py:25"),
     "track_reduce": ("tandem_tpu_torch/csrc/track_reduce.cu",
                      "tandem_tpu/tracking/coarse_tracker.py:348 "
-                     "(_energy_and_system: XLA code, not a Pallas kernel)"),
+                     "(_energy_and_system with :314 _tdist_weights: XLA "
+                     "code, not a Pallas kernel)"),
     "track_lm": ("tandem_tpu_torch/csrc/track_lm.cu",
                  "tandem_tpu/tracking/coarse_tracker.py:382 _lm_level + "
-                 ":348 _energy_and_system (XLA, not Pallas)"),
+                 ":348 _energy_and_system + :314 _tdist_weights (XLA, not "
+                 "Pallas)"),
 }
 
 
@@ -1762,58 +1785,81 @@ def _track_shapes():
     return shapes
 
 
-def _track_bound(T, aff, pts, planes, outs, evaluations: int) -> dict:
+def _track_bound(T, aff, pts, planes, outs, evaluations: int,
+                 tdist: bool = False) -> dict:
     """Bound of ``evaluations`` K6 evaluations of one level: the points,
     planes and poses read once and ``outs`` written once, against
-    TRACK_OPS per valid point and candidate for each evaluation."""
-    ops = evaluations * TRACK_OPS * int(pts[4].sum()) * T.shape[0]
+    TRACK_OPS (and TDIST_OPS in the t-mode) per valid point and candidate
+    for each evaluation."""
+    ops = (evaluations * (TRACK_OPS + TDIST_OPS * tdist)
+           * int(pts[4].sum()) * T.shape[0])
     return _bound(_nbytes(T, aff, *pts, *planes, *outs), ops)
 
 
 def phase_track_kernels(dev, out: dict):
-    """K6 against the float64 plain version at the tracker's level caps."""
+    """K6 in both weightings against the float64 plain version at the
+    tracker's level caps: one launch a call, num equal to the plain f32
+    version's, both times by CUDA events and the kernel's by the
+    profiler."""
     import torch
 
-    from tandem_tpu_torch.ops.track_reduce import (track_reduce,
+    from tandem_tpu_torch.ops.track_reduce import (cluster_plan,
+                                                   track_reduce,
                                                    track_reduce_plain)
     from tandem_tpu_torch.utils.cuda_timing import cuda_ms
     shapes = [shape[:3] for shape in _track_shapes()]
     worst, times = 0.0, {}
-    for i, (N, H, W) in enumerate(shapes):
-        for B in (1, 5, 15):
-            T, aff, pts, planes, K = _track_case(dev, N, B, H, W, 10 * i + B)
-            got = track_reduce(T, aff, pts, planes, K)
-            f32 = track_reduce_plain(T, aff, pts, planes, K)
-            f64 = track_reduce_plain(*_double(T, aff, pts, planes, K))
-            torch.cuda.synchronize()
-            if not torch.equal(got[1], f32[1]):
-                raise AssertionError(f"K6 num {got[1].tolist()} != plain "
-                                     f"{f32[1].tolist()} at N={N} B={B}")
+    for tdist in (False, True):
+        mode = "t" if tdist else "huber"
+        for i, (N, H, W) in enumerate(shapes):
+            for B in (1, 5, 15):
+                case = _track_case(dev, N, B, H, W, 10 * i + B)
+                before = track_reduce.launches
+                got = track_reduce(*case, tdist=tdist)
+                launches = track_reduce.launches - before
+                f32 = track_reduce_plain(*case, tdist)
+                f64 = track_reduce_plain(*_double(*case), tdist)
+                torch.cuda.synchronize()
+                if launches != 1:
+                    raise AssertionError(f"K6 {mode}: {launches} launches "
+                                         "a call")
+                if not torch.equal(got[1], f32[1]):
+                    raise AssertionError(f"K6 {mode} num {got[1].tolist()} "
+                                         f"!= plain {f32[1].tolist()} at "
+                                         f"N={N} B={B}")
 
-            def errs(x):   # (worst relative, worst absolute) over outputs
-                d = [((a.double() - b).abs().max(), b.abs().max())
-                     for j, (a, b) in enumerate(zip(x, f64)) if j != 1]
-                return (max(float(e / m.clamp_min(1e-30)) for e, m in d),
-                        max(float(e) for e, _ in d))
-            (err, abs_err), (err32, _) = errs(got), errs(f32)
-            worst = max(worst, abs_err)
-            if not err <= TRACK_TOL:
-                raise AssertionError(f"K6 at N={N} {H}x{W} B={B}: rel err "
-                                     f"{err:.3e} > {TRACK_TOL}")
-            ms = cuda_ms(lambda: track_reduce(T, aff, pts, planes, K))
-            plain_ms = cuda_ms(lambda: track_reduce_plain(T, aff, pts,
-                                                          planes, K))
-            times[(N, B)] = (ms, plain_ms, _track_bound(
-                T, aff, pts, planes, got, 1))
-            log(f"[track kernels] N={N} level {W}x{H} B={B}: num "
-                f"{int(got[1].sum())} equal; rel err vs f64 kernel "
-                f"{err:.3e} (abs {abs_err:.4g}), plain f32 {err32:.3e} (tol "
-                f"{TRACK_TOL}); "
-                f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-    ms, plain_ms, bound = times[(shapes[0][0], 15)]
-    log(f"[track kernels] N={shapes[0][0]} B=15: bound {bound}")
+                def errs(x):   # (worst relative, worst absolute) over outputs
+                    d = [((a.double() - b).abs().max(), b.abs().max())
+                         for j, (a, b) in enumerate(zip(x, f64)) if j != 1]
+                    return (max(float(e / m.clamp_min(1e-30)) for e, m in d),
+                            max(float(e) for e, _ in d))
+                (err, abs_err), (err32, _) = errs(got), errs(f32)
+                worst = max(worst, abs_err)
+                if not err <= TRACK_TOL:
+                    raise AssertionError(f"K6 {mode} at N={N} {H}x{W} B={B}: "
+                                         f"rel err {err:.3e} > {TRACK_TOL}")
+                ms = cuda_ms(lambda: track_reduce(*case, tdist=tdist))
+                dev_ms = _device_ms(lambda: track_reduce(*case, tdist=tdist))
+                plain_ms = cuda_ms(lambda: track_reduce_plain(*case, tdist))
+                times[(tdist, N, B)] = (ms, dev_ms, plain_ms, _track_bound(
+                    *case[:4], got, 1, tdist))
+                log(f"[track kernels] {mode} N={N} level {W}x{H} B={B} "
+                    f"({cluster_plan(N, tdist)['C']} CTAs a candidate): num "
+                    f"{int(got[1].sum())} equal; rel err vs f64 kernel "
+                    f"{err:.3e} (abs {abs_err:.4g}), plain f32 {err32:.3e} "
+                    f"(tol {TRACK_TOL}); one launch; kernel {ms:.4f} ms "
+                    f"events, {dev_ms:.4f} ms device; plain "
+                    f"{plain_ms:.4f} ms")
+    for tdist in (False, True):
+        ms, dev_ms, plain_ms, bound = times[(tdist, shapes[0][0], 15)]
+        log(f"[track kernels] {'t' if tdist else 'huber'} N={shapes[0][0]} "
+            f"B=15: events {ms:.4f} ms, device {dev_ms:.4f} ms, bound "
+            f"{bound}, share of the device time "
+            f"{100 * bound['bound_ms'] / dev_ms:.2f}%")
+    ms, dev_ms, plain_ms, bound = times[(False, shapes[0][0], 15)]
     out["track_reduce"] = {"max_abs_err": worst, "ms": ms,
-                           "plain_ms": plain_ms, **bound, "library_ms": None}
+                           "device_ms": dev_ms, "plain_ms": plain_ms,
+                           **bound, "library_ms": None}
 
 
 def _cast(x, dtype):
@@ -1821,7 +1867,8 @@ def _cast(x, dtype):
     return x.to(dtype) if torch.is_tensor(x) and x.is_floating_point() else x
 
 
-def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype) -> dict:
+def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype,
+                tdist: bool = False) -> dict:
     """Hold one kernel step (the state ``prev`` to ``got``) against
     lm_step_plain from ``prev`` evaluated in ``dtype`` (float64 for phase
     (a); float32 along a whole level). An inactive step must leave the
@@ -1838,13 +1885,14 @@ def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype) -> dict:
             raise AssertionError(f"{where}: an inactive step changed the "
                                  "state")
         return {"active": False, "solve": 0.0, "se3": 0.0, "se3_plain": 0.0,
-                "dx": 0.0, "T_new": 0.0, "sums": 0.0, "ties": 0}
+                "dx": 0.0, "T_new": 0.0, "dx_plain": 0.0, "sums": 0.0,
+                "ties": 0}
     p = tl.LMState(*(_cast(x, dtype) for x in prev))
     ptsd = tuple(_cast(x, dtype) for x in pts)
     planesd = tuple(_cast(x, dtype) for x in planes)
-    ref = tl.lm_step_plain(p, ptsd, planesd, K, max_iter)
+    ref = tl.lm_step_plain(p, ptsd, planesd, K, max_iter, tdist)
     e_new, n_new, _, _ = track_reduce_plain(p.T_new, p.aff_new, ptsd,
-                                            planesd, K)
+                                            planesd, K, tdist)
     e_old_n = p.e / p.n.clamp(min=1.0)
     e_new_n = e_new / n_new.clamp(min=1.0)
     margin = LM_TIE * e_old_n.clamp(min=1e-6)
@@ -1852,7 +1900,8 @@ def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype) -> dict:
                      | ((e_old_n - e_new_n - 1e-4 * e_old_n.clamp(min=1e-6))
                         .abs() <= margin))
     ok = ~tie
-    if (got.it, got.active) != (ref.it, ref.active):
+    # active is any(live): a tie's done or lam may decide it either way.
+    if got.it != ref.it or (got.active != ref.active and not tie.any()):
         raise AssertionError(f"{where}: it/active {got.it} {got.active} != "
                              f"{ref.it} {ref.active}")
     if not (torch.equal(got.done[ok], ref.done[ok])
@@ -1875,7 +1924,7 @@ def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype) -> dict:
     g_scale = (torch.diagonal(ref.Hm, dim1=-2, dim2=-1)
                * e_scale[:, None]).sqrt()
     errs = {"active": True, "solve": 0.0, "se3": 0.0, "se3_plain": 0.0,
-            "dx": 0.0, "T_new": 0.0,
+            "dx": 0.0, "T_new": 0.0, "dx_plain": 0.0,
             "sums": max(rel(got.e, ref.e, e_scale), rel(got.Hm, ref.Hm),
                         rel(got.g, ref.g, g_scale)),
             "ties": int(tie.sum())}
@@ -1901,139 +1950,209 @@ def _lm_compare(where, prev, got, pts, planes, K, max_iter, dtype) -> dict:
                     dx=rel(got.dx, ref.dx),
                     T_new=float((got.T_new[ok].to(dtype) - ref.T_new[ok])
                                 .abs().max() / step) if ok.any() else 0.0)
+        if tdist:   # the plain f32 step's own dx error against float64
+            other = (torch.float32 if dtype == torch.float64
+                     else torch.float64)
+            alt = tl.lm_step_plain(
+                tl.LMState(*(_cast(x, other) for x in prev)),
+                tuple(_cast(x, other) for x in pts),
+                tuple(_cast(x, other) for x in planes), K, max_iter, True)
+            s32, s64 = (alt, ref) if other == torch.float32 else (ref, alt)
+            both = ok & (s32.done == s64.done)
+            if alt.active and both.any():
+                errs["dx_plain"] = float(
+                    (s32.dx[both].double() - s64.dx[both]).abs().max()
+                    / s64.dx[both].abs().max().clamp(min=1e-30))
+    dx_tol = max(LM_DX_TOL, LM_DX_PLAIN_X * errs["dx_plain"])
     if not (errs["solve"] <= LM_SOLVE_TOL
             and errs["se3"] <= max(LM_SE3_TOL, 4 * errs["se3_plain"])
-            and max(errs["dx"], errs["T_new"]) <= LM_DX_TOL
+            and max(errs["dx"], errs["T_new"]) <= dx_tol
             and errs["sums"] <= TRACK_TOL):
         raise AssertionError(f"{where}: {errs} past LM_SOLVE_TOL "
                              f"{LM_SOLVE_TOL}, LM_SE3_TOL {LM_SE3_TOL}, "
-                             f"LM_DX_TOL {LM_DX_TOL}, TRACK_TOL {TRACK_TOL}")
+                             f"LM_DX_TOL {LM_DX_TOL} (here {dx_tol:.3e}), "
+                             f"TRACK_TOL {TRACK_TOL}")
     return errs
 
 
-def _lm_one_step(dev, N, B, H, W, max_iter, seed) -> dict:
+def _lm_one_step(dev, N, B, H, W, max_iter, seed, tdist=False) -> dict:
     """Phase track lm (a): a plain f32 state after one step, then one
-    kernel step from it against lm_step_plain in float64."""
+    kernel step from it (``lm_run`` from the packed state) against
+    lm_step_plain in float64."""
     import torch
 
     from tandem_tpu_torch.ops import track_lm as tl
     T, aff, pts, planes, K = _track_case(dev, N, B, H, W, seed)
-    s = tl.lm_init_plain(T, aff, pts, planes, K, max_iter)
-    s = tl.lm_step_plain(s, pts, planes, K, max_iter)
+    s = tl.lm_init_plain(T, aff, pts, planes, K, max_iter, tdist)
+    s = tl.lm_step_plain(s, pts, planes, K, max_iter, tdist)
     # The points the step evaluates, without f32/f64 ties at T_new.
     pts = _drop_ties(s.T_new, s.aff_new, pts, planes, K)[2]
-    buf = tl.pack_state(s)
-    tl.lm_steps(buf, T, aff, pts, planes, K, max_iter, 1)
-    return _lm_compare(f"track lm (a) N={N} {W}x{H} B={B}", s,
-                       tl.unpack_state(buf, B), pts, planes, K, max_iter,
-                       torch.float64)
+    _, hist, last = tl.lm_run(T, aff, pts, planes, K, max_iter, tdist,
+                              state=tl.pack_state(s), it0=s.it, n_steps=1)
+    # The state after the step: the recorded one, or the input where the
+    # loop had already ended (its candidates that are not done step on).
+    got = tl.history_state(hist, last,
+                           min(tl.loop_end(hist, last, s.it, max_iter), 1),
+                           s.it, max_iter)
+    return _lm_compare(f"track lm (a) {'t' if tdist else 'huber'} N={N} "
+                       f"{W}x{H} B={B}", s, got, pts, planes, K, max_iter,
+                       torch.float64, tdist)
 
 
-def _lm_level_steps(dev, case, max_iter, where) -> dict:
-    """Phase track lm (b), along the kernel's own path: the init launch
-    against lm_init_plain, then every one of the max_iter step launches
-    against lm_step_plain (f32, on the card) from the kernel's state before
-    it; lm_level (host reads every CHECK_EVERY steps) must end in the same
-    state bit for bit. Returns the worst errors and lm_level's result."""
+def _lm_level_steps(dev, case, max_iter, where, tdist) -> tuple:
+    """Phase track lm (b), along the kernel's own path: one launch of the
+    level, whose history holds every candidate's state after every step;
+    the first record against lm_init_plain, then every step up to the
+    loop's end against lm_step_plain (f32, on the card) from the kernel's
+    state before it; the kernel's result equal to its history's
+    (``lm_level_from_history``) and its sums at the accepted poses equal to
+    K6's at those poses, bit for bit. Returns the worst errors and the
+    kernel's result."""
     import torch
 
     from tandem_tpu_torch.ops import track_lm as tl
+    from tandem_tpu_torch.ops.track_reduce import track_reduce
     T, aff, pts, planes, K = case
     B = T.shape[0]
-    state = tl.new_state(B, dev)
-    tl.lm_steps(state, *case, max_iter, 0, init=True)
-    prev = tl.unpack_state(state, B)
-    ref = tl.lm_init_plain(*case, max_iter)
+    before = tl.lm_level.launches
+    out, hist, last = tl.lm_run(*case, max_iter, tdist)
+    if tl.lm_level.launches != before + 1:
+        raise AssertionError(f"{where}: not one launch a level")
+    end = tl.loop_end(hist, last, 0, max_iter)
+    prev = tl.history_state(hist, last, 0, 0, max_iter)
+    ref = tl.lm_init_plain(*case, max_iter, tdist)
     if not (torch.equal(prev.T, T) and torch.equal(prev.n, ref.n)
             and torch.equal(prev.lam, ref.lam) and prev.it == ref.it
             and prev.active == ref.active):
-        raise AssertionError(f"{where}: the init launch differs from "
+        raise AssertionError(f"{where}: the first record differs from "
                              "lm_init_plain")
     worst = {"solve": 0.0, "se3": 0.0, "se3_plain": 0.0, "dx": 0.0,
-             "T_new": 0.0, "sums": 0.0, "ties": 0}
-    for _ in range(max_iter):
-        tl.lm_steps(state, *case, max_iter, 1)
-        got = tl.unpack_state(state, B)
+             "T_new": 0.0, "dx_plain": 0.0, "sums": 0.0, "ties": 0}
+    for k in range(end):
+        got = tl.history_state(hist, last, k + 1, 0, max_iter)
         errs = _lm_compare(where, prev, got, pts, planes, K, max_iter,
-                           torch.float32)
-        worst = {k: max(v, errs[k]) for k, v in worst.items()}
+                           torch.float32, tdist)
+        worst = {key: max(v, errs[key]) for key, v in worst.items()}
         prev = got
-    out = tl.lm_level(*case, max_iter)
-    enough = tl.state_views(state, B)["n0"] >= tl.MIN_TERMS
-    if not (torch.equal(out[0], tl._bwhere(enough, prev.T, T))
-            and torch.equal(out[2], prev.e) and int(out[4]) == prev.it):
-        raise AssertionError(f"{where}: lm_level differs from its steps")
-    return worst, out
+    if prev.active and end < max_iter:
+        raise AssertionError(f"{where}: the loop ended at step {end} with a "
+                             "live candidate")
+    got = tl.level_result(out, B)
+    res = tl.lm_level_from_history(hist, last, T, aff, 0, max_iter)
+    if not all(torch.equal(a.float(), b.float()) for a, b in zip(got, res)):
+        raise AssertionError(f"{where}: the kernel's result differs from "
+                             "its history's")
+    k6 = track_reduce(prev.T, prev.aff, pts, planes, K, tdist=tdist)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k6, (prev.e, prev.n, prev.Hm, prev.g))):
+        raise AssertionError(f"{where}: the LM's sums at the accepted poses "
+                             "differ from K6's")
+    return worst, got
 
 
 def phase_track_lm(dev, out: dict):
-    """The LM kernel against its plain version: one step against float64,
-    whole levels step by step and against the plain f32 level on the
-    card."""
+    """The LM kernel against its plain version in both weightings: one step
+    against float64, whole levels step by step (from the kernel's history)
+    and against the plain f32 level on the card; one launch and no host
+    read a level."""
     import torch
 
     from tandem_tpu_torch.ops import track_lm as tl
     from tandem_tpu_torch.utils.cuda_timing import cuda_ms
     worst = {"solve": 0.0, "se3": 0.0, "se3_plain": 0.0, "dx": 0.0,
-             "T_new": 0.0, "sums": 0.0}
+             "T_new": 0.0, "dx_plain": 0.0, "sums": 0.0}
     shapes = _track_shapes()
-    for i, (N, H, W, _) in enumerate(shapes):
-        for B in (1, 5, 15):
-            errs = _lm_one_step(dev, N, B, H, W, 50, 100 + 10 * i + B)
-            worst = {k: max(v, errs[k]) for k, v in worst.items()}
-            log(f"[track lm] (a) N={N} level {W}x{H} B={B}: one step vs "
-                f"float64: dx's backward error {errs['solve']:.3e} "
-                f"(tol {LM_SOLVE_TOL}), T_new vs se3_exp(dx) T "
-                f"{errs['se3']:.3e} (plain f32 {errs['se3_plain']:.3e}, tol "
-                f"{LM_SE3_TOL} or 4x plain); dx {errs['dx']:.3e} "
-                f"and T_new {errs['T_new']:.3e} vs the step (tol "
-                f"{LM_DX_TOL}); e/H/g {errs['sums']:.3e} (tol {TRACK_TOL}); "
-                f"ties {errs['ties']}; active {errs['active']}; it, active, "
-                f"accept, done, lam equal")
+    for tdist in (False, True):
+        mode = "t" if tdist else "huber"
+        for i, (N, H, W, _) in enumerate(shapes):
+            for B in (1, 5, 15):
+                errs = _lm_one_step(dev, N, B, H, W, 50, 100 + 10 * i + B,
+                                    tdist)
+                worst = {k: max(v, errs[k]) for k, v in worst.items()}
+                log(f"[track lm] (a) {mode} N={N} level {W}x{H} B={B}: one "
+                    f"step vs float64: dx's backward error "
+                    f"{errs['solve']:.3e} (tol {LM_SOLVE_TOL}), T_new vs "
+                    f"se3_exp(dx) T {errs['se3']:.3e} (plain f32 "
+                    f"{errs['se3_plain']:.3e}, tol {LM_SE3_TOL} or 4x "
+                    f"plain); dx {errs['dx']:.3e} and T_new "
+                    f"{errs['T_new']:.3e} vs the step (tol {LM_DX_TOL}, or "
+                    f"{LM_DX_PLAIN_X:g}x the plain f32 step's "
+                    f"{errs['dx_plain']:.3e}); "
+                    f"e/H/g {errs['sums']:.3e} (tol {TRACK_TOL}); ties "
+                    f"{errs['ties']}; active {errs['active']}; it, active, "
+                    f"accept, done, lam equal")
     res = {}
-    for i, (N, H, W, max_iter) in enumerate(shapes):
-        for B in (1, 5, 15):
-            case = _track_case(dev, N, B, H, W, 10 * i + B)
-            where = f"track lm (b) N={N} {W}x{H} B={B}"
-            steps, got = _lm_level_steps(dev, case, max_iter, where)
-            worst = {k: max(v, steps[k]) for k, v in worst.items()}
-            ref = tl.lm_level_plain(*case, max_iter)
-            d_T = float((got[0] - ref[0]).abs().max())
-            d_aff = float((got[1] - ref[1]).abs().max())
-            its = (int(got[4]), int(ref[4]))
-            tol_T = LM_POSE_PX / case[4][0]
-            close = d_T <= tol_T and d_aff <= LM_AFF_TOL
-            # Paths that took another number of steps parted at a near-tie
-            # (the step check above holds each step); elsewhere, and always
-            # at the 640x480 cap, the end points must agree.
-            if not torch.isfinite(got[0]).all() or not (
-                    close or (i > 0 and its[0] != its[1])):
-                raise AssertionError(f"{where}: T {d_T:.3e} aff {d_aff:.3e} "
-                                     f"past {tol_T:.3e} / {LM_AFF_TOL}")
-            ms = cuda_ms(lambda: tl.lm_level(*case, max_iter))
-            # The plain level (host-bound, ~50 steps of eager ops) is timed
-            # at the 640x480 cap only, the kernel's row in the result.
-            plain_ms = cuda_ms(lambda: tl.lm_level_plain(*case, max_iter),
-                               iters=5, warmup=1) if i == 0 else None
-            res[(N, B)] = (ms, plain_ms, its, d_T, _track_bound(
-                *case[:4], got[:4], its[0] + 1))
-            log(f"[track lm] (b) N={N} level {W}x{H} B={B} max_iter "
-                f"{max_iter}: every step vs the plain step from the same "
-                f"state: dx's backward error {steps['solve']:.3e}, T_new vs "
-                f"se3_exp(dx) T {steps['se3']:.3e} (plain f32 "
-                f"{steps['se3_plain']:.3e}), dx {steps['dx']:.3e} and "
-                f"T_new {steps['T_new']:.3e} vs the step, e/H/g "
-                f"{steps['sums']:.3e}, ties {steps['ties']}; lm_level equal "
-                f"to its steps; end point vs lm_level_plain: pose {d_T:.3e} "
-                f"(tol {tol_T:.3e}), aff {d_aff:.3e} (tol {LM_AFF_TOL})"
-                f"{'' if close else ', paths parted'}; iterations kernel "
-                f"{its[0]} plain {its[1]}; level kernel {ms:.4f} ms"
-                + (f" plain {plain_ms:.4f} ms" if plain_ms else ""))
-    ms, plain_ms, its, d_T, bound = res[(shapes[0][0], 15)]
-    log(f"[track lm] N={shapes[0][0]} B=15: bound {bound} for "
-        f"{its[0] + 1} evaluations; worst over (a) and (b) {worst}")
+    for tdist in (False, True):
+        mode = "t" if tdist else "huber"
+        for i, (N, H, W, max_iter) in enumerate(shapes):
+            for B in (1, 5, 15):
+                case = _track_case(dev, N, B, H, W, 10 * i + B)
+                where = f"track lm (b) {mode} N={N} {W}x{H} B={B}"
+                steps, got = _lm_level_steps(dev, case, max_iter, where,
+                                             tdist)
+                worst = {k: max(v, steps[k]) for k, v in worst.items()}
+                ref = tl.lm_level_plain(*case, max_iter, tdist)
+                d_T = float((got[0] - ref[0]).abs().max())
+                d_aff = float((got[1] - ref[1]).abs().max())
+                its = (int(got[4]), int(ref[4]))
+                tol_T = LM_POSE_PX / case[4][0]
+                close = d_T <= tol_T and d_aff <= LM_AFF_TOL
+                # Paths that took another number of steps parted at a
+                # near-tie (the step check above holds each step);
+                # elsewhere, and always at the 640x480 cap, the end points
+                # must agree.
+                if not torch.isfinite(got[0]).all() or not (
+                        close or (i > 0 and its[0] != its[1])):
+                    raise AssertionError(f"{where}: T {d_T:.3e} aff "
+                                         f"{d_aff:.3e} past {tol_T:.3e} / "
+                                         f"{LM_AFF_TOL}")
+
+                def level():
+                    return tl.lm_level(*case, max_iter, tdist)
+                reads = _host_reads(level)
+                if reads:
+                    raise AssertionError(f"{where}: {reads} host reads "
+                                         "inside a level")
+                ms = cuda_ms(level)
+                dev_ms = _device_ms(level)
+                # The plain level (host-bound, ~50 steps of eager ops) is
+                # timed at the 640x480 cap only, the kernel's row in the
+                # result.
+                plain_ms = cuda_ms(
+                    lambda: tl.lm_level_plain(*case, max_iter, tdist),
+                    iters=5, warmup=1) if i == 0 else None
+                res[(tdist, N, B)] = (ms, dev_ms, plain_ms, its, d_T,
+                                      _track_bound(*case[:4], got[:4],
+                                                   its[0] + 1, tdist))
+                log(f"[track lm] (b) {mode} N={N} level {W}x{H} B={B} "
+                    f"max_iter {max_iter}: one launch, no host read; every "
+                    f"step vs the plain step from the same state: dx's "
+                    f"backward error {steps['solve']:.3e}, T_new vs "
+                    f"se3_exp(dx) T {steps['se3']:.3e} (plain f32 "
+                    f"{steps['se3_plain']:.3e}), dx {steps['dx']:.3e} and "
+                    f"T_new {steps['T_new']:.3e} vs the step (the plain f32 "
+                    f"step's own {steps['dx_plain']:.3e}), e/H/g "
+                    f"{steps['sums']:.3e}, ties {steps['ties']}; the result "
+                    f"equal to its history's, the sums to K6's; end point "
+                    f"vs lm_level_plain: pose {d_T:.3e} (tol {tol_T:.3e}), "
+                    f"aff {d_aff:.3e} (tol {LM_AFF_TOL})"
+                    f"{'' if close else ', paths parted'}; iterations "
+                    f"kernel {its[0]} plain {its[1]}; level kernel "
+                    f"{ms:.4f} ms events, {dev_ms:.4f} ms device"
+                    + (f"; plain {plain_ms:.4f} ms" if plain_ms else ""))
+    for tdist in (False, True):
+        ms, dev_ms, plain_ms, its, d_T, bound = res[(tdist, shapes[0][0],
+                                                     15)]
+        log(f"[track lm] {'t' if tdist else 'huber'} N={shapes[0][0]} B=15: "
+            f"events {ms:.4f} ms, device {dev_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; bound {bound} for {its[0] + 1} "
+            f"evaluations, share of the device time "
+            f"{100 * bound['bound_ms'] / dev_ms:.2f}%")
+    log(f"[track lm] worst over (a) and (b) {worst}")
+    ms, dev_ms, plain_ms, its, d_T, bound = res[(False, shapes[0][0], 15)]
     out["track_lm"] = {"max_abs_err": max(worst["se3"], d_T), "ms": ms,
-                       "plain_ms": plain_ms, **bound, "library_ms": None}
+                       "device_ms": dev_ms, "plain_ms": plain_ms, **bound,
+                       "library_ms": None}
 
 
 def _motion_init(ref_c2w, last_c2w, prev_c2w):
@@ -2214,25 +2333,30 @@ def _profile_track(ref, img, T0, aff0, profile: Path):
     from tandem_tpu_torch.ops.track_lm import lm_level
     from tandem_tpu_torch.tracking.coarse_tracker import track_frame
     torch.cuda.synchronize()
-    pairs = lm_level.launches
+    launches = lm_level.launches
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
         t0 = time.perf_counter()
         out = track_frame(ref, img, T0, aff0)
         torch.cuda.synchronize()
         span_ms = (time.perf_counter() - t0) * 1e3
-    pairs = lm_level.launches - pairs
+    launches = lm_level.launches - launches
     events = p.key_averages()
     device = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    lm_ms = sum(e.self_device_time_total for e in device
+                if "track_lm_kernel" in e.key) / 1e3
     log(events.table(sort_by="self_cuda_time_total", row_limit=20))
     log(f"[track 640x480] profiled track_frame: device busy {busy_ms:.3f} "
         f"ms of a {span_ms:.3f} ms host span (profiler on), idle "
         f"{100 * (1 - busy_ms / span_ms):.1f}%; launches per frame: "
         f"{sum(e.count for e in device)} device events (kernels and "
-        f"copies), of them {2 * pairs} track_lm launches ({pairs} pairs: "
-        f"6 init + {pairs - 6} steps, {sum(out['lm_iters'])} of them "
-        f"active; LM iterations by level {out['lm_iters']})")
+        f"copies), of them {launches} track_lm launches (one a level, "
+        f"{lm_ms:.3f} ms of device time; LM iterations by level "
+        f"{out['lm_iters']}, {sum(out['lm_iters'])} in all)")
+    if launches != 6:
+        raise AssertionError(f"track 640x480: {launches} track_lm launches "
+                             "a frame, not one a level")
     profile.mkdir(parents=True, exist_ok=True)
     p.export_chrome_trace(str(profile / "track_frame_trace.json"))
 
@@ -2973,7 +3097,9 @@ def phase_sensor_640(dev, backend, pack):
       view 0 and each of views 1-6, each view's depth the slice's splat
       render at its pose, from the identity;
     - raycast at each golden pose, beside render_depth_splat (full walk)
-      on the same volume and pose, and the march alone."""
+      on the same volume and pose, and the march alone;
+    - the Student-t track_frame (``_sensor_track``).
+    Returns the launches of the Student-t tracking."""
     import torch
 
     from tandem_tpu_torch.mapping.tsdf import (_raycast_march, raycast,
@@ -3014,6 +3140,8 @@ def phase_sensor_640(dev, backend, pack):
         f"events); n {ns}; bound {b['bound_ms']:.5f} ms ({b['bound_by']}), "
         f"share {100 * b['bound_ms'] / med:.3f}%; {_events_line(ev)}")
 
+    counts = _sensor_track(dev, backend, pack, grays)
+
     ray_ms, splat_ms, march_ms, hits = [], [], [], []
     for v, p in enumerate(poses):
         d, _ = raycast(cfg, vol, (K, p), H, W)
@@ -3044,6 +3172,50 @@ def phase_sensor_640(dev, backend, pack):
         f"{[(round(h, 4), round(e, 3)) for h, e in hits]}; bound "
         f"{b['bound_ms']:.5f} ms ({b['bound_by']}), share "
         f"{100 * b['bound_ms'] / med:.3f}%; {_events_line(ev)}")
+    return counts
+
+
+def _sensor_track(dev, backend, pack, grays) -> dict:
+    """The RGB-D path's fallback tracker at the deployed size: the
+    Student-t track_frame of golden views 1-6 against the dense reference
+    on view 0 (the slice's rendered depth, as phase track 640x480 builds
+    it), from the identity; it must launch track_lm (one a level) and
+    K6. Times only (host clock, synced), iterations, host reads a frame.
+    Returns the launches."""
+    import torch
+
+    from tandem_tpu_torch.tracking.coarse_tracker import track_frame
+    K = torch.from_numpy(pack["K3"][0]).to(dev)
+    fx, fy, cx, cy = (float(pack["K3"][0][i]) for i in ((0, 0), (1, 1),
+                                                         (0, 2), (1, 2)))
+    dm = backend.get_tracking_depth_map()
+    c2w = torch.from_numpy(np.asarray(dm["c2w"], np.float32)).to(dev)
+    ref = _dense_ref(dev, dm["depth"], c2w, grays[0].cpu().numpy(), K, fx,
+                     fy, cx, cy)
+    eye = torch.eye(4, device=dev)
+    aff0 = torch.tensor([1.0, 0.0], device=dev)
+    reset_counts()
+    ms, iters = [], []
+    for img in grays[1:]:
+        t, out = _median_ms(lambda: track_frame(ref, img, eye, aff0, True),
+                            reps=3)
+        if not torch.isfinite(out["T"]).all():
+            raise AssertionError("sensor 640x480: a Student-t track_frame "
+                                 "pose is not finite")
+        ms.append(t)
+        iters.append(out["lm_iters"])
+    counts = read_counts()
+    require_launched("sensor 640x480", counts, ("track_lm", "track_reduce"))
+    if counts["track_lm"] != 6 * 3 * len(ms):
+        raise AssertionError(f"sensor 640x480: {counts['track_lm']} track_lm "
+                             f"launches for {3 * len(ms)} frames")
+    reads = _host_reads(lambda: track_frame(ref, grays[1], eye, aff0, True))
+    log(f"[sensor 640x480] {card_label_once()} Student-t track_frame "
+        f"(tdist=True), views 1-6 against view 0: ms/frame "
+        f"{[round(x, 3) for x in ms]} median {float(np.median(ms)):.3f} ms "
+        f"(host clock, synced, median of 3); LM iterations by level "
+        f"{iters}; track_lm one launch a level; host reads a frame {reads}")
+    return counts
 
 
 def _rgbd_run(dev, out_dir: Path, unit: bool, frames: int = 64,
@@ -3154,9 +3326,9 @@ def _rgbd_op_times(dev, r) -> dict:
     dvo and tracking references against the last frame) of dense_match
     (level 1), calc_res_eval, the Student-t track_frame (dvo's fallback)
     and the retry ladder's first call (track_frame_multi, 5 candidates),
-    and of the Student-t LM on level 0 (``_lm_level``, lm_level_plain with
-    the t weights) at B = 1 and 5 with its steps, host reads, device events
-    and bound."""
+    and of the Student-t LM on level 0 (``_lm_level``: one launch of
+    track_lm in the t-mode) at B = 1 and 5 with its steps, host reads,
+    device events and bound."""
     import torch
 
     from tandem_tpu_torch.tracking.coarse_tracker import (
@@ -3270,6 +3442,7 @@ def phase_rgbd(dev) -> dict:
                         f"+- {RGBD_DVO_POSES_SLACK}")
             require_launched(f"rgbd {tag}", r["counts"], ("track_reduce",),
                              at_least=dvo)
+            require_launched(f"rgbd {tag}", r["counts"], ("track_lm",))
             if unit:
                 backend = r["backend"]
                 log(f"[rgbd {tag}] backend calls {backend.call_num}, "
@@ -3956,7 +4129,7 @@ def main() -> int:
             lap("track 640x480")
             phase_culled(dev, backend, pack)
             lap("culled")
-            phase_sensor_640(dev, backend, pack)
+            paths["sensor_640x480"] = phase_sensor_640(dev, backend, pack)
             lap("sensor 640x480")
         del runner, backend
         torch.cuda.empty_cache()

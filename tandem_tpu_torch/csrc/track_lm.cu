@@ -1,30 +1,39 @@
-// The coarse tracker's whole LM iteration on one pyramid level: residuals,
+// The coarse tracker's LM on one pyramid level, in one launch: residuals,
 // normal equations, the damped 8x8 solve, the SE(3) update and the
-// accept/reject of B <= 32 candidate poses, in two launches, with the
-// level's state on the card.
+// accept/reject of B <= 32 candidate poses until the level's loop ends,
+// with no host read inside the level.
 //
 // Replaces tandem_tpu/tracking/coarse_tracker.py _lm_level (:382, the
 // lax.while_loop of cond :394-397 and body :399-425, the n0 >= 32 rule
-// :433-435) together with _energy_and_system (:348, the Huber branch),
+// :433-435) together with _energy_and_system (:348, both weightings),
 // solve_gauss_jordan_batched (tandem_tpu/ops/linalg.py:64) and se3_exp
 // (tandem_tpu/core/se3.py:63). The JAX package runs the loop inside one
 // jitted program (XLA, not Pallas).
 //
 // Bound: the level's points and planes read once (at most 42,496 points x
 // 17 B and three 640x480 f32 planes, ~4.4 MB, ~1.3 us at 3.35 TB/s) and
-// ~180 flops per point and candidate: far below one launch. What this
-// design is for: eager PyTorch spent ~150 launches and one host sync on
-// every iteration (the unrolled Gauss-Jordan, se3_exp, the selects, the
-// loop condition); here an iteration is two launches and no sync:
-//   pass 1  K6's partial pass (track_partial.cuh) at the proposal T_new,
-//           leaving at once when the level is no longer active and skipping
-//           candidates that are done;
-//   pass 2  one block, one warp per candidate: sum the partials in block
-//           order (as track_reduce.cu does, so the sums equal K6's), judge
-//           the proposal (ops/track_lm.py lm_step_plain), count the step,
-//           set the level's active flag, and propose the next step.
-// The host launches pairs without reading anything back; once the active
-// flag is off every further pair is a no-op.
+// ~180 flops per point, candidate and step (~250 with the t weights).
+// What the design is for: the earlier form launched a pair of kernels a
+// step and read the loop's condition back every 16 steps, so a 640x480
+// frame was ~200 launches and the card idled ~90% of it.
+//
+// Design: candidate b is one thread-block cluster (track_partial.cuh's
+// layout) that runs the whole while_loop for itself: evaluate at the
+// proposal, reduce across the cluster, then every CTA judges, counts the
+// step, sets the damping and proposes the next step from the same sums
+// (redundantly, so nothing is broadcast), with the state in shared
+// memory. The JAX loop's condition, it < max_iter and any(~done & lam <
+// 1e4), couples the candidates; it is resolved after the fact, because a
+// candidate's state after k steps does not depend on the others, a done
+// candidate is frozen (it accepts nothing, keeps lam, and proposes the
+// same step again), and once the condition is false nothing changes. So
+// each cluster runs its candidate until it is done or out of steps and
+// records its state after every step in a history (B, steps + 1, 128);
+// the last cluster to finish (a __threadfence and an atomic counter,
+// which it resets) finds K, the first step after which no candidate is
+// live, and writes candidate b's state at min(K, its last step) with the
+// n0 >= 32 rule, and it = K. Clusters need not be co-resident: B x C CTAs
+// may run in waves.
 //
 // Exactness: the judge, the damped Gauss-Jordan (in the operation order of
 // ops/linalg._gauss_jordan, lane c of a warp holding column c of [Hl | g])
@@ -32,26 +41,27 @@
 // keep se3_exp's Taylor switches in full f32; matrix products sum in index
 // order. cuBLAS and the CPU sum 3x3/4x4 products in their own order, so
 // the kernel matches the plain version to rounding, not bit for bit.
+#include <cstddef>
+
 #include "track_partial.cuh"
 
 namespace {
 
 constexpr int kMaxB = 32;  // ops/track_lm.py MAX_CANDIDATES
-constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLam0 = 0.01f;
 constexpr float kLamMax = 1e4f;
+constexpr float kMinTerms = 32.0f;
+constexpr int kOutFields = 20;  // T (16), aff (2), e, n
 
-// The level's state (ops/track_lm.py _FIELDS): f32 blocks over the B
-// candidates, then flags = (it, active).
+// One candidate's state: a record of the history (ops/track_lm.py
+// RECORD_FIELDS). live = !done && lam < 1e4.
 struct LmState {
-  float *T, *aff, *T_new, *aff_new, *dx, *Hm, *g, *lam, *done, *e, *n, *n0,
-      *flags;
-  __host__ __device__ LmState(float* base, int B)
-      : T(base), aff(T + 16 * B), T_new(aff + 2 * B),
-        aff_new(T_new + 16 * B), dx(aff_new + 2 * B), Hm(dx + 8 * B),
-        g(Hm + 64 * B), lam(g + 8 * B), done(lam + B), e(done + B),
-        n(e + B), n0(n + B), flags(n0 + B) {}
+  float T[16], aff[2], T_new[16], aff_new[2], dx[8], Hm[64], g[8];
+  float lam, done, e, n, n0, live;
+  float pad[6];
 };
+constexpr int kRecord = 128;
+static_assert(sizeof(LmState) == kRecord * sizeof(float), "record layout");
 
 // se3_exp (core/se3.py) of xi = (v, w): the top three rows of the 4x4.
 __device__ void se3_exp(const float xi[6], float E[3][4]) {
@@ -117,147 +127,245 @@ __device__ void damped_solve(const float* Hm, const float* g, float lam,
   for (int i = 0; i < 8; ++i) x[i] = __shfl_sync(kFull, col[i], 8);
 }
 
-// Pass 2: one block of B warps. init: the level's first evaluation (at the
-// input T_in, aff_in) becomes the state, lam = 0.01, done = 0, it = 0.
-// Otherwise, unless the level is inactive: judge the proposal, it += 1.
-// Then active = it < max_iter and any(!done & lam < 1e4), and if active
-// every candidate proposes its next step.
-__global__ void __launch_bounds__(32 * kMaxB)
-    track_lm_kernel(const float* __restrict__ partial, int nblk,
-                    float* __restrict__ state, int B, int max_iter, int init,
-                    const float* __restrict__ T_in,
-                    const float* __restrict__ aff_in) {
-  const LmState s(state, B);
-  if (!init && s.flags[1] == 0.0f) return;  // converged: a no-op
-  __shared__ float sums[kMaxB][kAcc];
-  __shared__ int active;
-  const int b = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const bool was_done = !init && s.done[b] != 0.0f;
-  if (!was_done) {
-    for (int k = lane; k < kAcc; k += 32) {
-      sums[b][k] = sum_partials(partial, b, nblk, k);
-    }
+// The sums of an evaluation as the state's e, n, H (both triangles), g.
+__device__ void take_sums(LmState& s, const float* tot, int lane) {
+  for (int m = lane; m < 36; m += 32) {
+    int i, j;
+    tri_index(m, &i, &j);
+    s.Hm[i * 8 + j] = tot[2 + m];
+    s.Hm[j * 8 + i] = tot[2 + m];
   }
-  __syncwarp();
+  if (lane < 8) s.g[lane] = tot[38 + lane];
+  if (lane == 0) {
+    s.e = tot[0];
+    s.n = tot[1];
+  }
+}
 
-  // Judge (every lane alike; the writes wait until all lanes have read).
-  bool accept = init, small = false;
-  if (!init && !was_done) {
-    const float e_old_n = dvd(s.e[b], fmaxf(s.n[b], 1.0f));
-    const float e_new_n = dvd(sums[b][0], fmaxf(sums[b][1], 1.0f));
-    accept = e_new_n < e_old_n;
-    float step = 0.0f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) step = fmaxf(step, fabsf(s.dx[b * 8 + i]));
-    small = step < 1e-5f ||
-            (accept && sub(e_old_n, e_new_n) <
-                           mul(1e-4f, fmaxf(e_old_n, 1e-6f)));
-  }
-  const float lam = init ? kLam0
-                         : (was_done ? s.lam[b]
-                                     : mul(s.lam[b], accept ? 0.5f : 4.0f));
+// The state after the level's first evaluation, at (T, aff) (warp 0).
+__device__ void init_state(LmState& s, const float* T, const float* aff,
+                           const float* tot, int lane) {
+  float* f = reinterpret_cast<float*>(&s);
+  for (int k = lane; k < kRecord; k += 32) f[k] = 0.0f;
   __syncwarp();
-  if (accept) {
-    const float* Ts = init ? T_in + b * 16 : s.T_new + b * 16;
-    const float* As = init ? aff_in + b * 2 : s.aff_new + b * 2;
-    if (lane < 16) s.T[b * 16 + lane] = Ts[lane];
-    if (lane < 2) s.aff[b * 2 + lane] = As[lane];
-    for (int m = lane; m < 36; m += 32) {
-      int i, j;
-      tri_index(m, &i, &j);
-      s.Hm[b * 64 + i * 8 + j] = sums[b][2 + m];
-      s.Hm[b * 64 + j * 8 + i] = sums[b][2 + m];
-    }
-    if (lane < 8) s.g[b * 8 + lane] = sums[b][38 + lane];
-    if (lane == 0) {
-      s.e[b] = sums[b][0];
-      s.n[b] = sums[b][1];
-    }
+  if (lane < 16) s.T[lane] = s.T_new[lane] = T[lane];
+  if (lane < 2) s.aff[lane] = s.aff_new[lane] = aff[lane];
+  take_sums(s, tot, lane);
+  if (lane == 0) {
+    s.n0 = tot[1];
+    s.lam = kLam0;
+    s.live = 1.0f;
   }
-  if (init) {  // the proposal before the first solve is the input itself
-    if (lane < 16) s.T_new[b * 16 + lane] = T_in[b * 16 + lane];
-    if (lane < 2) s.aff_new[b * 2 + lane] = aff_in[b * 2 + lane];
-    if (lane < 8) s.dx[b * 8 + lane] = 0.0f;
-    if (lane == 0) s.n0[b] = sums[b][1];
+  __syncwarp();
+}
+
+// Judge the proposal whose sums are ``tot`` (warp 0; the candidate is not
+// done): accept if the normalised energy fell, converge on a tiny step or
+// a tiny accepted gain, halve or quadruple lam (ops/track_lm.py
+// lm_step_plain).
+__device__ void judge(LmState& s, const float* tot, int lane) {
+  const float e_old_n = dvd(s.e, fmaxf(s.n, 1.0f));
+  const float e_new_n = dvd(tot[0], fmaxf(tot[1], 1.0f));
+  const bool accept = e_new_n < e_old_n;
+  float step = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) step = fmaxf(step, fabsf(s.dx[i]));
+  const bool small =
+      step < 1e-5f || (accept && sub(e_old_n, e_new_n) <
+                                     mul(1e-4f, fmaxf(e_old_n, 1e-6f)));
+  const float lam = mul(s.lam, accept ? 0.5f : 4.0f);
+  __syncwarp();  // every lane has read the state
+  if (accept) {
+    if (lane < 16) s.T[lane] = s.T_new[lane];
+    if (lane < 2) s.aff[lane] = s.aff_new[lane];
+    take_sums(s, tot, lane);
   }
   if (lane == 0) {
-    s.lam[b] = lam;
-    s.done[b] = (was_done || small) ? 1.0f : 0.0f;
+    s.lam = lam;
+    s.done = small ? 1.0f : 0.0f;
+    s.live = !small && lam < kLamMax ? 1.0f : 0.0f;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int it = init ? 0 : static_cast<int>(s.flags[0]) + 1;
-    bool any = false;
-    for (int c = 0; c < B; ++c) any |= s.done[c] == 0.0f && s.lam[c] < kLamMax;
-    active = it < max_iter && any;
-    s.flags[0] = static_cast<float>(it);
-    s.flags[1] = active ? 1.0f : 0.0f;
-  }
-  __syncthreads();
-  if (!active) return;
+  __syncwarp();
+}
 
-  // Propose: dx = -solve(Hl, g), T_new = se3_exp(dx[:6]) @ T,
-  // aff_new = aff + dx[6:].
+// Propose: dx = -solve(Hl, g), T_new = se3_exp(dx[:6]) @ T, aff_new = aff
+// + dx[6:] (warp 0).
+__device__ void propose(LmState& s, int lane) {
   float x[8];
-  damped_solve(s.Hm + b * 64, s.g + b * 8, s.lam[b], lane, x);
-  if (lane != 0) return;
-  float dx[8], E[3][4];
+  damped_solve(s.Hm, s.g, s.lam, lane, x);
+  if (lane == 0) {
+    float dx[8], E[3][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dx[i] = -x[i];
-  se3_exp(dx, E);
-  const float* Tb = s.T + b * 16;
-  float* Tn = s.T_new + b * 16;
+    for (int i = 0; i < 8; ++i) dx[i] = -x[i];
+    se3_exp(dx, E);
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+    for (int k = 0; k < 4; ++k) {
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      Tn[i * 4 + k] = add(add(add(mul(E[i][0], Tb[k]), mul(E[i][1], Tb[4 + k])),
-                              mul(E[i][2], Tb[8 + k])),
-                          mul(E[i][3], Tb[12 + k]));
+      for (int i = 0; i < 3; ++i) {
+        s.T_new[i * 4 + k] =
+            add(add(add(mul(E[i][0], s.T[k]), mul(E[i][1], s.T[4 + k])),
+                    mul(E[i][2], s.T[8 + k])),
+                mul(E[i][3], s.T[12 + k]));
+      }
+      s.T_new[12 + k] = s.T[12 + k];  // se3_exp's bottom row is (0, 0, 0, 1)
     }
-    Tn[12 + k] = Tb[12 + k];  // se3_exp's bottom row is (0, 0, 0, 1)
-  }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s.dx[b * 8 + i] = dx[i];
-  s.aff_new[b * 2] = add(s.aff[b * 2], dx[6]);
-  s.aff_new[b * 2 + 1] = add(s.aff[b * 2 + 1], dx[7]);
+    for (int i = 0; i < 8; ++i) s.dx[i] = dx[i];
+    s.aff_new[0] = add(s.aff[0], dx[6]);
+    s.aff_new[1] = add(s.aff[1], dx[7]);
+  }
+  __syncwarp();
+}
+
+// The last cluster's tail (one CTA): K and the outputs.
+__device__ void finish(const float* __restrict__ hist,
+                       const float* __restrict__ last,
+                       const float* __restrict__ T_in,
+                       const float* __restrict__ aff_in, int it0,
+                       int max_iter, int n_steps, float* __restrict__ out) {
+  __shared__ int steps[kMaxB];
+  __shared__ int K;
+  const int B = gridDim.y, n_rec = n_steps + 1;
+  if (threadIdx.x < B) {
+    steps[threadIdx.x] = static_cast<int>(__ldcg(last + threadIdx.x));
+  }
+  if (threadIdx.x == 0) K = n_steps;
+  __syncthreads();
+  // K: the first step after which no candidate is live (the loop's
+  // condition is false), or the steps taken.
+  for (int k = threadIdx.x; k <= n_steps; k += kThreads) {
+    bool any = false;
+    if (it0 + k < max_iter) {
+      for (int c = 0; c < B; ++c) {
+        if (k <= steps[c]) {
+          const float* rec =
+              hist + (static_cast<int64_t>(c) * n_rec + k) * kRecord;
+          any |= __ldcg(rec + offsetof(LmState, live) / 4) != 0.0f;
+        }
+      }
+    }
+    if (!any) atomicMin(&K, k);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < B * kOutFields; j += kThreads) {
+    const int c = j / kOutFields, f = j % kOutFields;
+    const int k = K < steps[c] ? K : steps[c];
+    const float* rec = hist + (static_cast<int64_t>(c) * n_rec + k) * kRecord;
+    const bool enough =
+        __ldcg(rec + offsetof(LmState, n0) / 4) >= kMinTerms;
+    if (f < 16) {
+      out[c * 16 + f] = enough ? __ldcg(rec + f) : T_in[c * 16 + f];
+    } else if (f < 18) {
+      out[16 * B + c * 2 + f - 16] =
+          enough ? __ldcg(rec + offsetof(LmState, aff) / 4 + f - 16)
+                 : aff_in[c * 2 + f - 16];
+    } else if (f == 18) {
+      out[18 * B + c] = __ldcg(rec + offsetof(LmState, e) / 4);
+    } else {
+      out[19 * B + c] = __ldcg(rec + offsetof(LmState, n) / 4);
+    }
+  }
+  if (threadIdx.x == 0) out[20 * B] = static_cast<float>(it0 + K);
+}
+
+// Grid (C, B), clusters (C, 1, 1). state_in null: the level's first
+// evaluation at (T_in, aff_in) starts the state; otherwise candidate b
+// starts from record b of state_in after it0 steps. Takes at most n_steps
+// steps (n_steps <= max_iter - it0).
+template <bool kTdist>
+__global__ void __launch_bounds__(kThreads, 1)
+    track_lm_kernel(Level L, Plan plan, const float* __restrict__ T_in,
+                    const float* __restrict__ aff_in,
+                    const float* __restrict__ state_in, int it0,
+                    int max_iter, int n_steps, float* __restrict__ hist,
+                    float* __restrict__ last, unsigned* __restrict__ counter,
+                    float* __restrict__ out) {
+  extern __shared__ float4 smem[];
+  __shared__ float warp_sums[kWarps][kAcc];
+  __shared__ float cta[2][kAcc];
+  __shared__ float total[kAcc];
+  __shared__ LmState s;
+  __shared__ int is_last;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.y, lane = threadIdx.x & 31;
+  const bool warp0 = threadIdx.x < 32;
+  const unsigned rank = cluster.block_rank();
+  const Share share = make_share(L, plan, rank, smem);
+  Reducer R{warp_sums, cta, total, 0};
+  float* my_hist = hist + static_cast<int64_t>(b) * (n_steps + 1) * kRecord;
+
+  if (state_in != nullptr) {
+    if (threadIdx.x < kRecord) {
+      reinterpret_cast<float*>(&s)[threadIdx.x] =
+          state_in[b * kRecord + threadIdx.x];
+    }
+  } else {
+    evaluate<kTdist>(L, share, load_pose(T_in + 16 * b, aff_in + 2 * b), R);
+    if (warp0) {
+      init_state(s, T_in + 16 * b, aff_in + 2 * b, total, lane);
+      if (it0 < max_iter) propose(s, lane);
+    }
+  }
+  __syncthreads();
+  if (rank == 0 && threadIdx.x < kRecord) {
+    my_hist[threadIdx.x] = reinterpret_cast<const float*>(&s)[threadIdx.x];
+  }
+  int k = 0;
+  while (k < n_steps && s.done == 0.0f) {
+    ++k;
+    evaluate<kTdist>(L, share, load_pose(s.T_new, s.aff_new), R);
+    if (warp0) {
+      judge(s, total, lane);
+      if (it0 + k < max_iter) propose(s, lane);
+    }
+    __syncthreads();
+    if (rank == 0 && threadIdx.x < kRecord) {
+      my_hist[k * kRecord + threadIdx.x] =
+          reinterpret_cast<const float*>(&s)[threadIdx.x];
+    }
+  }
+  cluster.sync();  // every CTA is done reading the others' vectors
+  if (rank != 0) return;
+  if (threadIdx.x == 0) last[b] = static_cast<float>(k);
+  __threadfence();  // this candidate's records, before it is counted
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counter, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  finish(hist, last, T_in, aff_in, it0, max_iter, n_steps, out);
+  if (threadIdx.x == 0) atomicExch(counter, 0u);  // ready for the next call
 }
 
 }  // namespace
 
-// pu, pv, pid, pcol: (N,) f32; pvalid: (N,) bool; T, aff: (B, 4, 4) and
-// (B, 2) f32, the level's input (read by the init launch only); img, gx,
-// gy: (H, W) f32; partial: (B, nblk, 46) f32 scratch with nblk =
-// max(ceil(N / 1024), 1); state: the level's f32 state (ops/track_lm.py
-// new_state), written in full by the init launch. All contiguous on the
-// current device. Launches, on ``stream`` and without synchronising, the
-// init pair when ``init`` and then ``n_steps`` step pairs; returns the
-// first launch error, or 0.
+// T, aff: (B, 4, 4) and (B, 2) f32, the level's input; pu, pv, pid, pcol:
+// (N,) f32; pvalid: (N,) bool; img, gx, gy: (H, W) f32; state_in: null,
+// or (B, 128) records to start from after it0 steps; hist: f32 scratch of
+// B * (n_steps + 1) * 128 + B (the history, then each candidate's last
+// step); counter: one unsigned, 0 between calls, used by the calls of one
+// stream only; out: f32 (B * 20 + 1): T (B, 4, 4), aff (B, 2), e (B,),
+// n (B,), it. All contiguous on the current device. tdist selects the
+// Student-t weighting. Launches one kernel on ``stream`` without
+// synchronising; returns the launch's error, or cudaErrorInvalidValue.
 extern "C" int tandem_track_lm(
-    const float* pu, const float* pv, const float* pid, const float* pcol,
-    const uint8_t* pvalid, const float* T, const float* aff, const float* img,
-    const float* gx, const float* gy, int64_t N, int B, int H, int W,
-    float fx, float fy, float cx, float cy, float cutoff, float huber,
-    float* partial, int nblk, float* state, int max_iter, int init,
-    int n_steps, cudaStream_t stream) {
-  if (B <= 0 || B > kMaxB || nblk != num_blocks(N) || n_steps < 0) {
+    const float* T, const float* aff, int B, const float* pu, const float* pv,
+    const float* pid, const float* pcol, const uint8_t* pvalid,
+    const float* img, const float* gx, const float* gy, int64_t N, int H,
+    int W, float fx, float fy, float cx, float cy, float cutoff, float huber,
+    int tdist, const float* state_in, int it0, int max_iter, int n_steps,
+    float* hist, unsigned* counter, float* out, cudaStream_t stream) {
+  Plan plan;
+  if (B <= 0 || B > kMaxB || N < 0 || it0 < 0 || n_steps < 0 ||
+      it0 + n_steps > (max_iter > it0 ? max_iter : it0) ||
+      !make_plan(N, tdist != 0, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const LmState s(state, B);
-  const dim3 grid(nblk, B);
-  for (int step = init ? -1 : 0; step < n_steps; ++step) {
-    const bool first = step < 0;
-    track_partial_kernel<<<grid, kThreads, 0, stream>>>(
-        pu, pv, pid, pcol, pvalid, first ? T : s.T_new,
-        first ? aff : s.aff_new, first ? nullptr : s.flags + 1,
-        first ? nullptr : s.done, img, gx, gy, N, H, W, fx, fy, cx, cy,
-        cutoff, huber, partial);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    track_lm_kernel<<<1, 32 * B, 0, stream>>>(partial, nblk, state, B,
-                                              max_iter, first ? 1 : 0, T, aff);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const Level L{pu, pv, pid, pcol, pvalid, img, gx, gy, N,  H,
+                W,  fx, fy,  cx,   cy,     cutoff, huber};
+  float* last = hist + static_cast<int64_t>(B) * (n_steps + 1) * kRecord;
+  auto kernel = tdist ? &track_lm_kernel<true> : &track_lm_kernel<false>;
+  return static_cast<int>(launch_clusters(kernel, plan, B, stream, L, plan,
+                                          T, aff, state_in, it0, max_iter,
+                                          n_steps, hist, last, counter, out));
 }

@@ -29,6 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _c_int, _c_i64, _c_ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
 _c_f32 = ctypes.c_float
+_TRACK_LEVEL = ([_c_ptr, _c_ptr, _c_int] + [_c_ptr] * 8 + [_c_i64, _c_int, _c_int]
+                + [_c_f32] * 6 + [_c_int])
 # Exported C entry points: name -> argtypes (every one returns a CUDA error
 # code as int and takes the stream last).
 SIGNATURES = {
@@ -45,11 +47,10 @@ SIGNATURES = {
     "tandem_warp_sample_grad": [ctypes.c_char_p, _c_ptr],
     # ... and an int it sets to the number of kernels it launched
     "tandem_edge_filter": [ctypes.c_char_p, ctypes.POINTER(_c_int), _c_ptr],
-    "tandem_track_reduce": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
-                           + [_c_f32] * 6 + [_c_ptr, _c_int] + [_c_ptr] * 5,
-    "tandem_track_lm": [_c_ptr] * 10 + [_c_i64, _c_int, _c_int, _c_int]
-                       + [_c_f32] * 6 + [_c_ptr, _c_int, _c_ptr]
-                       + [_c_int] * 3 + [_c_ptr],
+    # T, aff, B, then the level (ops/track_reduce.level_args)
+    "tandem_track_reduce": _TRACK_LEVEL + [_c_ptr] * 4 + [_c_ptr],
+    "tandem_track_lm": _TRACK_LEVEL + [_c_ptr] + [_c_int] * 3
+                       + [_c_ptr] * 3 + [_c_ptr],
 }
 
 
@@ -144,6 +145,15 @@ def launch(name: str, device, *args) -> None:
             rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def current_stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the stream
+    ``launch`` passes)."""
+    import torch
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    return _raw_stream()(index)
 
 
 @functools.cache

@@ -4,12 +4,18 @@
 ``csrc/track_reduce.cu`` for CUDA tensors and uses ``track_reduce_plain``
 for CPU tensors; a CUDA tensor never reaches the plain version (there is no
 fallback: the kernel runs or the call raises). Both compute
-``_energy_and_system(tdist=False)`` of ``tandem_tpu/tracking/
-coarse_tracker.py``: for every candidate pose b and reference point n,
+``_energy_and_system`` of ``tandem_tpu/tracking/coarse_tracker.py`` in
+either weighting: for every candidate pose b and reference point n,
 project the point into the new frame, sample intensity and gradients
-bilinearly, form the photometric residual, its Huber/cutoff weight and its
-8-vector Jacobian, and sum the energy, the count of usable residuals and
-H = J^T W J, g = J^T W r.
+bilinearly, form the photometric residual, its weight (DSO's Huber and
+cutoff, or with ``tdist`` dvo's Student-t weights with their iterated
+scale, ``tdist_weights``) and its 8-vector Jacobian, and sum the energy,
+the count of usable residuals and H = J^T W J, g = J^T W r.
+
+On the card a candidate is one thread-block cluster of ``cluster_size(N)``
+CTAs (``cluster_plan``, the mirror of ``csrc/track_partial.cuh``'s
+``make_plan``); the LM kernel (``ops/track_lm.py``) evaluates the same way,
+so its sums at a pose equal K6's bit for bit.
 
 The JAX package samples a 12-wide corner-packed table (``_pack_level``, a
 TPU gather trick); here both versions read the three level planes
@@ -26,8 +32,35 @@ import torch
 
 CUTOFF_TH = 20.0                       # setting_coarseCutoffTH
 HUBER_TH = 9.0                         # setting_huberTH
-N_ACC = 46                             # energy, num, 36 of H, 8 of g
-POINTS_PER_BLOCK = 1024                # csrc/track_reduce.cu kPointsPerBlock
+TDIST_DOF = 5.0                        # dvo t-distribution nu (dense_tracking.h)
+# csrc/track_partial.cuh: threads a CTA, the points a thread the cluster
+# size is chosen for, the portable cluster size, and the dynamic shared
+# memory a CTA may take for its stashed points and t-mode r^2.
+THREADS = 512
+POINTS_PER_THREAD = 4
+MAX_CLUSTER = 8
+SMEM_MAX = 200 * 1024
+
+
+def cluster_size(N: int) -> int:
+    """CTAs a candidate on the card: enough for POINTS_PER_THREAD points a
+    thread, 1 to MAX_CLUSTER. From N alone, so that K6 and the LM split a
+    level alike whatever the number of candidates."""
+    per = THREADS * POINTS_PER_THREAD
+    return min(max(-(-N // per), 1), MAX_CLUSTER)
+
+
+def cluster_plan(N: int, tdist: bool) -> dict:
+    """How the card splits a level of N points: CTAs a candidate, points a
+    CTA, whether the points are stashed in shared memory (16 B each, with
+    4 B of r^2 each in the t-mode) and the dynamic shared memory a CTA."""
+    C = cluster_size(N)
+    share = -(-N // C)
+    r_bytes = 4 * share if tdist else 0
+    both = 16 * share + r_bytes
+    stash = both <= SMEM_MAX
+    return {"C": C, "share": share, "stash": stash,
+            "smem": both if stash else r_bytes}
 
 
 def bilinear_with_grad(img, gx, gy, x, y):
@@ -123,10 +156,37 @@ def normal_equations(r, J, wf):
             torch.einsum("bni,bn->bi", Jw, r))
 
 
-def track_reduce_plain(T, aff, pts, planes, Klvl):
+def tdist_weights(r, use):
+    """Student-t robust weights with iterative scale estimation (dvo-core
+    TDistributionScaleEstimator + TDistributionInfluenceFunction,
+    weight_calculation.cpp:437-489). r/use: (B, N)."""
+    nu = TDIST_DOF
+    zero = torch.zeros_like(r)
+    r2 = torch.where(use, r * r, zero)
+    n = torch.clamp(use.to(r.dtype).sum(-1, keepdim=True), min=1.0)
+    mean_r2 = r2.sum(-1, keepdim=True) / n
+    # Init from the below-the-mean trimmed mean (a cheap low quantile).
+    low = use & (r2 <= mean_r2)
+    n_low = torch.clamp(low.to(r.dtype).sum(-1, keepdim=True), min=1.0)
+    sigma2 = torch.clamp(torch.where(low, r2, zero).sum(-1, keepdim=True)
+                         / n_low, min=1e-6)
+    for _ in range(10):
+        w = (nu + 1.0) / (nu + r2 / sigma2)
+        sigma2 = torch.clamp(torch.where(use, r2 * w, zero).sum(-1,
+                                                                keepdim=True)
+                             / n, min=1e-6)
+    return (nu + 1.0) / (nu + r2 / sigma2)
+
+
+def track_reduce_plain(T, aff, pts, planes, Klvl, tdist: bool = False):
     """Plain PyTorch K6: (energy (B,), num (B,), Hm (B, 8, 8), g (B, 8)) of
-    the Huber + cutoff branch, in the dtype of the inputs."""
+    the Huber + cutoff branch, or with ``tdist`` of the Student-t branch
+    (no cutoff, no Huber), in the dtype of the inputs."""
     r, J, good, _, _ = level_residuals(T, aff, pts, planes, Klvl)
+    if tdist:
+        wf = torch.where(good, tdist_weights(r, good), torch.zeros_like(r))
+        Hm, g = normal_equations(r, J, wf)
+        return (wf * r * r).sum(-1), good.to(r.dtype).sum(-1), Hm, g
     absr = r.abs()
     use = good & (absr < CUTOFF_TH)
     hw = torch.where(absr < HUBER_TH, torch.ones_like(r),
@@ -166,37 +226,51 @@ def check_inputs(fn: str, T, aff, pts, planes):
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
-def track_reduce(T, aff, pts, planes, Klvl):
+def check_plan(fn: str, N: int, tdist: bool) -> None:
+    """Raise when a CTA's share of the level does not fit its shared
+    memory in the t-mode (the kernels would refuse it)."""
+    if cluster_plan(N, tdist)["smem"] > SMEM_MAX:
+        raise ValueError(f"{fn}: {N} points are more than the t-mode "
+                         f"holds ({MAX_CLUSTER * SMEM_MAX // 4})")
+
+
+def level_args(pts, planes, Klvl, tdist: bool) -> tuple:
+    """The C entry points' level arguments, after (T, aff, B): the point
+    list, the planes, N, H, W, the intrinsics, the thresholds and the
+    weighting (csrc/track_reduce.cu, csrc/track_lm.cu)."""
+    H, W = planes[0].shape
+    return (*(p.data_ptr() for p in pts), *(p.data_ptr() for p in planes),
+            pts[0].shape[0], H, W, *(float(k) for k in Klvl), CUTOFF_TH,
+            HUBER_TH, int(tdist))
+
+
+def track_reduce(T, aff, pts, planes, Klvl, tdist: bool = False):
     """K6 on the card (CUDA tensors) or its plain version (CPU tensors).
 
     :param T: (B, 4, 4) f32 candidate ref->new poses; aff: (B, 2) f32
     :param pts: (pu, pv, pid, pcolor) (N,) f32 and pvalid (N,) bool
     :param planes: (img, gx, gy) (H, W) f32 of the new frame's level
     :param Klvl: (fx, fy, cx, cy) floats
+    :param tdist: the Student-t weighting instead of Huber + cutoff
     :return: energy (B,), num (B,), Hm (B, 8, 8), g (B, 8), f32
     """
     if T.device.type == "cpu":
-        return track_reduce_plain(T, aff, pts, planes, Klvl)
+        return track_reduce_plain(T, aff, pts, planes, Klvl, tdist)
     if T.device.type != "cuda":
         raise ValueError(f"track_reduce: unsupported device {T.device}")
     check_inputs("track_reduce", T, aff, pts, planes)
+    B, N = T.shape[0], pts[0].shape[0]
+    check_plan("track_reduce", N, tdist)
     from ._build import launch
 
-    B, N = T.shape[0], pts[0].shape[0]
-    H, W = planes[0].shape
     dev = T.device
-    nblk = max(-(-N // POINTS_PER_BLOCK), 1)
-    partial = torch.empty((B, nblk, N_ACC), dtype=torch.float32, device=dev)
-    energy = torch.empty(B, dtype=torch.float32, device=dev)
-    num = torch.empty(B, dtype=torch.float32, device=dev)
-    Hm = torch.empty((B, 8, 8), dtype=torch.float32, device=dev)
-    g = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    launch("tandem_track_reduce", dev,
-           *(p.data_ptr() for p in pts), T.data_ptr(), aff.data_ptr(),
-           *(p.data_ptr() for p in planes), N, B, H, W,
-           *(float(k) for k in Klvl), CUTOFF_TH, HUBER_TH,
-           partial.data_ptr(), nblk, energy.data_ptr(), num.data_ptr(),
-           Hm.data_ptr(), g.data_ptr())
+    out = torch.empty(B * 74, dtype=torch.float32, device=dev)
+    energy, num = out[:B], out[B:2 * B]
+    Hm = out[2 * B:66 * B].view(B, 8, 8)
+    g = out[66 * B:].view(B, 8)
+    launch("tandem_track_reduce", dev, T.data_ptr(), aff.data_ptr(), B,
+           *level_args(pts, planes, Klvl, tdist),
+           energy.data_ptr(), num.data_ptr(), Hm.data_ptr(), g.data_ptr())
     track_reduce.launches += 1
     return energy, num, Hm, g
 

@@ -533,16 +533,16 @@ def _k6_case(dev, N, B, H=61, W=83, seed=0):
     return _track_case(dev, N, B, H, W, seed)
 
 
-def _k6_check(case):
+def _k6_check(case, tdist=False):
     from chip_smoke import _double
     from tandem_tpu_torch.ops.track_reduce import (track_reduce,
                                                    track_reduce_plain)
     before = track_reduce.launches
-    got = track_reduce(*case)
+    got = track_reduce(*case, tdist=tdist)
     torch.cuda.synchronize()
     assert track_reduce.launches == before + 1
-    f32 = track_reduce_plain(*case)
-    f64 = track_reduce_plain(*_double(*case))
+    f32 = track_reduce_plain(*case, tdist)
+    f64 = track_reduce_plain(*_double(*case), tdist)
     assert torch.equal(got[1], f32[1])                     # num
     for j in (0, 2, 3):                                    # energy, Hm, g
         err = (got[j].double() - f64[j]).abs().max()
@@ -556,6 +556,15 @@ def test_track_reduce_kernel_matches_f64(dev, B, N):
     """Odd point counts leave ragged last blocks; within 1e-4 of the
     largest |entry| of a float64 evaluation, num equal to the f32 plain."""
     _k6_check(_k6_case(dev, N, B, seed=N + B))
+
+
+@pytest.mark.parametrize("B", [1, 5, 15])
+@pytest.mark.parametrize("N", [1, 1000, 2049, 5000])
+def test_tdist_track_reduce_kernel_matches_f64(dev, B, N):
+    """K6's Student-t mode (14 cluster reductions an evaluation) against
+    the float64 plain version, as the Huber mode; 2049 and 5000 points
+    take 2 and 3 CTAs a candidate."""
+    _k6_check(_k6_case(dev, N, B, seed=N + B), tdist=True)
 
 
 def test_track_reduce_kernel_empty_and_saturated(dev):
@@ -633,8 +642,41 @@ def test_track_lm_empty_and_saturated(dev):
     assert torch.equal(e, n * 400.0) and bool((n > 0).all())
 
 
+@pytest.mark.parametrize("B", [1, 5, 15])
+@pytest.mark.parametrize("N", [1000, 4097])
+def test_tdist_track_lm_level_matches_plain(dev, B, N):
+    """The Student-t level on the kernel against lm_level_plain with the t
+    weights on the card, within the same tolerances as the Huber level."""
+    from chip_smoke import LM_AFF_TOL, LM_POSE_PX
+    from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
+    case = _k6_case(dev, N, B, seed=N + 2 * B)
+    before = lm_level.launches
+    got = lm_level(*case, 50, tdist=True)
+    torch.cuda.synchronize()
+    assert lm_level.launches == before + 1
+    ref = lm_level_plain(*case, 50, True)
+    assert (got[0] - ref[0]).abs().max() <= LM_POSE_PX / case[4][0]
+    assert (got[1] - ref[1]).abs().max() <= LM_AFF_TOL
+    assert 0 < int(got[4]) <= 50
+
+
+@pytest.mark.parametrize("tdist", [False, True])
+def test_track_lm_one_launch_a_level(dev, tdist):
+    """One launch and no host read a level; every recorded step against
+    the plain step, the result equal to the history's and the sums at the
+    accepted poses equal to K6's (chip_smoke._lm_level_steps raises
+    otherwise)."""
+    from chip_smoke import _host_reads, _lm_level_steps
+    from tandem_tpu_torch.ops.track_lm import lm_level
+    case = _k6_case(dev, 4097, 5, seed=7)
+    _lm_level_steps(dev, case, 50, "card test", tdist)
+    before = lm_level.launches
+    assert _host_reads(lambda: lm_level(*case, 50, tdist)) == 0
+    assert lm_level.launches == before + 1
+
+
 def test_track_lm_rejects_bad_input(dev):
-    from tandem_tpu_torch.ops.track_lm import lm_level, lm_steps, new_state
+    from tandem_tpu_torch.ops.track_lm import RECORD, lm_level, lm_run
     T, aff, pts, planes, K = _k6_case(dev, 300, 2)
     with pytest.raises(ValueError):
         lm_level(T.double(), aff, pts, planes, K, 10)
@@ -646,12 +688,31 @@ def test_track_lm_rejects_bad_input(dev):
         lm_level(T[:1].expand(33, 4, 4).contiguous(),
                  aff[:1].expand(33, 2).contiguous(), pts, planes, K, 10)
     with pytest.raises(ValueError):                     # state of B = 1
-        lm_steps(new_state(1, dev), T, aff, pts, planes, K, 10, 1)
+        lm_run(T, aff, pts, planes, K, 10,
+               state=torch.zeros((1, RECORD), device=dev))
+    big = tuple(p.repeat(2 * 10 ** 6 // 300 + 1)[:2 * 10 ** 6].contiguous()
+                for p in pts)                # t-mode r^2 past shared memory
+    with pytest.raises(ValueError):
+        lm_level(T, aff, big, planes, K, 10, tdist=True)
 
 
 def test_track_frame_card_matches_cpu(dev):
     """The whole tracker on the card against the CPU run (plain K6) on a
     textured plane: poses within 1e-4."""
+    _track_frame_card_vs_cpu(dev, False)
+
+
+def test_tdist_track_frame_card_matches_cpu(dev):
+    """The Student-t tracker (the RGB-D path's, track_lm in the t-mode) on
+    the card against the CPU run: poses within 1e-4; one track_lm launch a
+    level."""
+    from tandem_tpu_torch.ops.track_lm import lm_level
+    before = lm_level.launches
+    _track_frame_card_vs_cpu(dev, True)
+    assert lm_level.launches == before + 6
+
+
+def _track_frame_card_vs_cpu(dev, tdist):
     from tandem_tpu_torch.core.se3 import se3_exp
     from tandem_tpu_torch.tracking.coarse_tracker import (make_tracker_ref,
                                                           track_frame)
@@ -681,7 +742,8 @@ def test_track_frame_card_matches_cpu(dev):
                                sparse_weight=torch.ones((Hh, Ww), device=d))
         out.append(track_frame(ref, torch.from_numpy(new_img).to(d),
                                torch.eye(4, device=d),
-                               torch.tensor([1.0, 0.0], device=d))["T"].cpu())
+                               torch.tensor([1.0, 0.0], device=d),
+                               tdist)["T"].cpu())
     assert (out[0] - out[1]).abs().max() <= 1e-4
 
 

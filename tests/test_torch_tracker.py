@@ -254,6 +254,61 @@ def test_track_reduce_plain_f64_agrees():
     assert not Hm.any() and not g.any()
 
 
+def test_tdist_track_reduce_plain_f64_agrees():
+    """The Student-t K6 in f32 against its own float64 evaluation (the
+    card's kernel is held to the same float64 in chip_smoke.py): the
+    scale's fixed point moves by rounding only. An all-invalid list sums
+    to zero."""
+    _, rt = _make_refs("dense")
+    new_img, _ = render_plane(np.eye(4))
+    pt = tpyr.build_pyramid(T_(new_img), 6)
+    Ts, aff = _candidates(3)
+    planes = tct._planes(pt[0])
+    pts = rt.level(0)
+    out32 = track_reduce(T_(Ts), T_(aff), pts, planes, rt.K[0], tdist=True)
+    out64 = track_reduce(T_(Ts).double(), T_(aff).double(),
+                         tuple(p.double() if p.is_floating_point() else p
+                               for p in pts),
+                         tuple(p.double() for p in planes), rt.K[0],
+                         tdist=True)
+    for a, b in zip(out32, out64):
+        assert _rel(a, b) <= 1e-5
+    huber = track_reduce(T_(Ts), T_(aff), pts, planes, rt.K[0])
+    assert torch.equal(out32[1], huber[1])      # the same points are good
+    none = pts[:4] + (torch.zeros_like(pts[4]),)
+    e, n, Hm, g = track_reduce(T_(Ts), T_(aff), none, planes, rt.K[0],
+                               tdist=True)
+    assert not e.any() and not n.any() and not Hm.any() and not g.any()
+
+
+@pytest.mark.parametrize("N, C, share", [
+    (0, 1, 0), (1, 1, 1), (2048, 1, 2048), (2049, 2, 1025),
+    (4800, 3, 1600), (10240, 5, 2048), (16384, 8, 2048),
+    (42496, 8, 5312), (10 ** 6, 8, 125000)])
+def test_cluster_plan(N, C, share):
+    """The card's split of a level (csrc/track_partial.cuh make_plan, as a
+    pure function): ~4 points a thread, 1 to 8 CTAs a candidate, from N
+    alone; the points stashed in shared memory while they fit (16 B a
+    point, 4 more in the t-mode), else read from L2; a t-mode share whose
+    r^2 does not fit is refused."""
+    from tandem_tpu_torch.ops import track_reduce as tr
+    assert tr.cluster_size(N) == C
+    for tdist in (False, True):
+        plan = tr.cluster_plan(N, tdist)
+        assert (plan["C"], plan["share"]) == (C, share)
+        per = 16 + 4 * tdist
+        assert plan["stash"] == (share * per <= tr.SMEM_MAX)
+        assert plan["smem"] == (share * per if plan["stash"]
+                                else 4 * share * tdist)
+    assert tr.cluster_plan(42496, True)["smem"] == 106240   # 640x480 cap
+    assert not tr.cluster_plan(157696, False)["stash"]       # 1280x960 cap
+    if N == 10 ** 6:
+        with pytest.raises(ValueError):
+            tr.check_plan("t", N, True)
+    else:
+        tr.check_plan("t", N, True)
+
+
 # --- LM and the entry points ------------------------------------------------
 
 def _pose_close(t_out, j_out, tol=1e-4):
