@@ -22,6 +22,12 @@ else the middle view), per-stage intrinsics by half-pixel-aware resizing,
 per-stage GT depths by nearest resizing, masks = depth in
 [depth_min, depth_max]. Batches are numpy, equal bit for bit to the JAX
 package's on the same files.
+
+``make_batches`` records, on the consumer's thread (``utils/timer.py``),
+``loader_blocked`` around its waits on the workers, ``loader_collate``
+around ``collate`` and, as each batch is asked for, the counter
+``loader_ready``: the batches of the lookahead with every sample decoded,
+the one being taken included.
 """
 
 from __future__ import annotations
@@ -36,7 +42,10 @@ import numpy as np
 
 from ..core.camera import cam_intrinsics, cam_resize, cam_stack
 from ..native_bridge import read_png_native
+from ..utils.timer import Timer
 from .png_format import png_layout
+
+_TIMER = Timer(enabled=False)
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -478,7 +487,10 @@ def make_batches(dataset, batch_size: int, shuffle: bool = False,
 
     if num_workers <= 0:
         for idx in batches:
-            yield collate([dataset[int(j)] for j in idx])
+            samples = [dataset[int(j)] for j in idx]
+            with _TIMER.span("loader_collate"):
+                batch = collate(samples)
+            yield batch
         return
 
     from collections import deque
@@ -500,6 +512,13 @@ def make_batches(dataset, batch_size: int, shuffle: bool = False,
             if not submit():
                 break
         while pending:
+            if _TIMER.recording():
+                _TIMER.count("loader_ready", sum(
+                    all(f.done() for f in b) for b in pending))
             futs = pending.popleft()
-            yield collate([f.result() for f in futs])
+            with _TIMER.span("loader_blocked"):
+                samples = [f.result() for f in futs]
+            with _TIMER.span("loader_collate"):
+                batch = collate(samples)
+            yield batch
             submit()

@@ -21,6 +21,17 @@ calls, and on ``extract_mesh_now``, the global mesh is extracted
 pushDr* calls) get the periodic mesh and, for each fused keyframe, its
 BGR image and its MVS depth and confidence, read to the host once a call
 only when a sink is attached.
+
+Spans (``utils/timer.py``, the backend's Timer, which it hands its runner):
+``backend_call``; ``fusion`` around ``_fuse_previous``, holding
+``mvsnet_result``, ``fusion_upload`` (the pageable copies of the camera and
+the image, which wait for the stream), one ``fusion_read`` for each
+deliberate host read (the pool counts, with the allocation that needs
+them; the visible count; the render's axis counts), each also a sample of
+the counter ``fusion_host_reads``, and the enqueue of the rest:
+``fusion_cull`` (the frustum and surface culls), ``fusion_integrate`` and
+``fusion_render``; and ``fusion`` on the backend's stream from the moment
+it holds the MVSNet's answer to the render's end.
 """
 
 from __future__ import annotations
@@ -72,6 +83,8 @@ class TandemBackend:
         self.K = np.asarray(K, np.float32)
         self.H, self.W = height, width
         self.timer = timer or Timer(enabled=False)
+        if timer is not None:
+            mvsnet_runner.timer = timer
         self.mesh_freq = mesh_extraction_freq
         self.mesh_callback = mesh_callback
         self.last_mesh = None
@@ -120,20 +133,39 @@ class TandemBackend:
         self.timer.end_timing("backend_call", tid)
 
     def _fuse_previous(self, next_ref_c2w):
-        dev = self.device
-        res = self.runner.get_result(device=True)
-        depth = res["depth"]
-        rgb = torch.from_numpy(np.ascontiguousarray(
-            self._prev["ref_bgr"][..., ::-1], dtype=np.float32)).to(dev)
-        K = torch.from_numpy(self.K).to(dev)
-        pose = torch.from_numpy(
-            np.asarray(self._prev["ref_c2w"], np.float32)).to(dev)
+        with self.timer.span("fusion"):
+            res = self.runner.get_result(device=True)
+            dev = torch.device(self.device)
+            stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                      else None)
+            with self.timer.device_span("fusion", stream):
+                self._fuse(res["depth"], next_ref_c2w)
+            return res
 
-        self.volume = allocate_blocks(self.cfg, self.volume, depth, K, pose)
+    def _host_read(self):
+        """The span of a deliberate host read of the fusion, counted."""
+        self.timer.count("fusion_host_reads")
+        return self.timer.span("fusion_read")
+
+    def _fuse(self, depth, next_ref_c2w):
+        """Fuse the previous call's keyframe and render the tracker's depth
+        at ``next_ref_c2w``."""
+        dev = self.device
+        with self.timer.span("fusion_upload"):
+            rgb = torch.from_numpy(np.ascontiguousarray(
+                self._prev["ref_bgr"][..., ::-1], dtype=np.float32)).to(dev)
+            K = torch.from_numpy(self.K).to(dev)
+            pose = torch.from_numpy(
+                np.asarray(self._prev["ref_c2w"], np.float32)).to(dev)
+
+        with self._host_read():
+            self.volume = allocate_blocks(self.cfg, self.volume, depth, K,
+                                          pose)
         # n_allocated and n_dropped are host counts; n_vis is read once,
         # after any growth (one host sync).
-        slots, n_vis = visible_slots(self.cfg, self.volume, K, pose, self.H,
-                                     self.W)
+        with self.timer.span("fusion_cull"):
+            slots, n_vis = visible_slots(self.cfg, self.volume, K, pose,
+                                         self.H, self.W)
         # Pool exhaustion: the reference commits 10^6 blocks and aborts when
         # the heap runs dry (heap.cu:16-18); here the pool grows on demand
         # and the idempotent allocation picks up exactly the dropped blocks.
@@ -149,35 +181,44 @@ class TandemBackend:
                     self._pool_warned = True
                 break
             self.cfg, self.volume = grow_volume(self.cfg, self.volume)
-            self.volume = allocate_blocks(self.cfg, self.volume, depth, K,
-                                          pose)
-            slots, n_vis = visible_slots(self.cfg, self.volume, K, pose,
-                                         self.H, self.W)
-        n_alloc, n_vis = self.volume.n_allocated, int(n_vis)
+            with self._host_read():
+                self.volume = allocate_blocks(self.cfg, self.volume, depth,
+                                              K, pose)
+            with self.timer.span("fusion_cull"):
+                slots, n_vis = visible_slots(self.cfg, self.volume, K, pose,
+                                             self.H, self.W)
+        with self._host_read():
+            n_vis = int(n_vis)
+        n_alloc = self.volume.n_allocated
         # The JAX backend's rule (kept for parity, not tuned for this
         # card): the contiguous full walk when most of the map is in view,
         # the slot gather/scatter of the culled walk otherwise.
         culled = n_vis < 0.5 * n_alloc
-        if culled:
-            self.volume = integrate_culled(self.cfg, self.volume, depth, rgb,
-                                           K, pose, slots, n_vis)
-        else:
-            self.volume = integrate(self.cfg, self.volume, depth, rgb, K,
-                                    pose)
+        with self.timer.span("fusion_integrate"):
+            if culled:
+                self.volume = integrate_culled(self.cfg, self.volume, depth,
+                                               rgb, K, pose, slots, n_vis)
+            else:
+                self.volume = integrate(self.cfg, self.volume, depth, rgb, K,
+                                        pose)
         # The render cull reads the fused sdf, so it runs after integrate.
-        pose_r = torch.from_numpy(
-            np.asarray(next_ref_c2w, np.float32)).to(dev)
-        ax_slots, ax_counts = surface_axis_slots(self.cfg, self.volume, K,
-                                                 pose_r, self.H, self.W)
-        ax_counts = ax_counts.tolist()
-        rdepth = render_depth_splat(self.cfg, self.volume, K, pose_r,
-                                    self.H, self.W, axis_slots=ax_slots,
-                                    axis_counts=ax_counts)
+        with self.timer.span("fusion_upload"):
+            pose_r = torch.from_numpy(
+                np.asarray(next_ref_c2w, np.float32)).to(dev)
+        with self.timer.span("fusion_cull"):
+            ax_slots, ax_counts = surface_axis_slots(self.cfg, self.volume,
+                                                     K, pose_r, self.H,
+                                                     self.W)
+        with self._host_read():
+            ax_counts = ax_counts.tolist()
+        with self.timer.span("fusion_render"):
+            rdepth = render_depth_splat(self.cfg, self.volume, K, pose_r,
+                                        self.H, self.W, axis_slots=ax_slots,
+                                        axis_counts=ax_counts)
         self.last_fuse = {"n_allocated": n_alloc, "n_visible": n_vis,
                           "culled_integrate": culled,
                           "axis_counts": ax_counts}
         self.depth_map.write(rdepth, np.asarray(next_ref_c2w))
-        return res
 
     def stats(self) -> dict:
         """Volume occupancy counters (host integers — no device sync)."""

@@ -26,6 +26,11 @@ forward (``parallel/view_shard.py``), the counterpart of the JAX runner's
 The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
 float32, or bfloat16 as the JAX runtime deploys it); the depth and
 confidence it hands on are float32 in both.
+
+Spans (``utils/timer.py``; the backend hands the runner its Timer):
+``mvsnet_pack``, ``mvsnet_upload`` and ``mvsnet_dispatch`` (the enqueue of
+the stage-3 forward and the edge filter) on the host, ``mvsnet`` on the
+runner's stream around them, and ``mvsnet_result``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
 from ..models.edge_filter import filter_edges
 from ..native_bridge import bgr_pack_u8
+from ..utils.timer import Timer
 
 
 class MvsnetRunner:
@@ -83,6 +89,7 @@ class MvsnetRunner:
         self._event = None
         self._pending = None
         self._ready = True
+        self.timer = Timer(enabled=False)
 
     # --- packing ---------------------------------------------------------
     @staticmethod
@@ -132,8 +139,11 @@ class MvsnetRunner:
         """The stage-3 forward on the packed inputs: (filtered depth,
         filtered confidence, depth, confidence), each (1, H, W)."""
         with torch.no_grad():
-            return self._forward(*self._device_inputs(
-                image, Ks, c2w, depth_min, depth_max, discard))
+            with self.timer.span("mvsnet_upload"):
+                inputs = self._device_inputs(image, Ks, c2w, depth_min,
+                                             depth_max, discard)
+            with self.timer.span("mvsnet_dispatch"):
+                return self._forward(*inputs)
 
     def _device_inputs(self, image, Ks, c2w, depth_min, depth_max,
                        discard) -> tuple:
@@ -153,15 +163,17 @@ class MvsnetRunner:
                    ref_index: Optional[int] = None):
         assert self._ready, "CallAsync called before previous GetResult"
         self._ready = False
-        args = self.pack_inputs(bgrs, cam_to_worlds, K, ref_index)
+        with self.timer.span("mvsnet_pack"):
+            args = self.pack_inputs(bgrs, cam_to_worlds, K, ref_index)
         if self._stream is None:
             self._pending = self._run(*args, depth_min, depth_max,
                                       discard_percentage)
             return
         self._stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(self._stream):
-            self._pending = self._run(*args, depth_min, depth_max,
-                                      discard_percentage)
+            with self.timer.device_span("mvsnet", self._stream):
+                self._pending = self._run(*args, depth_min, depth_max,
+                                          discard_percentage)
             self._event = torch.cuda.Event()
             self._event.record(self._stream)
 
@@ -171,16 +183,17 @@ class MvsnetRunner:
         the caller's current stream without a host sync; otherwise this
         blocks and returns numpy arrays."""
         assert not self._ready, "GetResult called before CallAsync"
-        tensors = self._pending
-        if self._event is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(self._event)
-            for x in tensors:
-                x.record_stream(cur)
-        conv = (lambda x: x) if device else (lambda x: x.cpu().numpy())
-        result = {k: conv(x[0]) for k, x in zip(
-            ("depth", "confidence", "depth_dense", "confidence_dense"),
-            tensors)}
+        with self.timer.span("mvsnet_result"):
+            tensors = self._pending
+            if self._event is not None:
+                cur = torch.cuda.current_stream(self.device)
+                cur.wait_event(self._event)
+                for x in tensors:
+                    x.record_stream(cur)
+            conv = (lambda x: x) if device else (lambda x: x.cpu().numpy())
+            result = {k: conv(x[0]) for k, x in zip(
+                ("depth", "confidence", "depth_dense", "confidence_dense"),
+                tensors)}
         self._pending = None
         self._event = None
         self._ready = True

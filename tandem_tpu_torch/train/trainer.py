@@ -51,6 +51,12 @@ from ..models.cva_mvsnet import STAGES, CvaMVSNet, outputs_to_dict
 from ..models.losses import compute_loss
 from ..models.metrics import eval_errors
 from ..parallel import collectives
+from ..utils.timer import Timer
+
+# The step's spans (utils/timer.py): train_upload, train_forward (the
+# forward and the loss), train_backward, train_optimizer (Adam and the
+# schedule) and train_metrics.
+_TIMER = Timer(enabled=False)
 
 # The keys of a batch that a step reads.
 BATCH_KEYS = ("image", "cam_to_world", "depth_min", "depth_max",
@@ -156,7 +162,8 @@ def batch_to_device(batch: Dict, device) -> Dict:
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.ascontiguousarray(v))
         return t.to(device, non_blocking=True)
-    return {k: put(batch[k]) for k in BATCH_KEYS if k in batch}
+    with _TIMER.span("train_upload"):
+        return {k: put(batch[k]) for k in BATCH_KEYS if k in batch}
 
 
 def _stage_K(batch, stage):
@@ -234,15 +241,17 @@ def loss_and_grads(model: CvaMVSNet, batch: Dict, loss_cfg: Dict):
     outputs), this rank's."""
     for p in model.parameters():
         p.grad = None
-    out = forward_outputs(model, batch, train=True)
-    loss, losses = compute_loss(out, batch, **loss_cfg)
-    loss.backward()
-    if collectives.in_group():
-        params = list(model.parameters())
-        grads = _rank_mean([torch.zeros_like(p) if p.grad is None
-                            else p.grad for p in params])
-        for p, g in zip(params, grads):
-            p.grad = g
+    with _TIMER.span("train_forward"):
+        out = forward_outputs(model, batch, train=True)
+        loss, losses = compute_loss(out, batch, **loss_cfg)
+    with _TIMER.span("train_backward"):
+        loss.backward()
+        if collectives.in_group():
+            params = list(model.parameters())
+            grads = _rank_mean([torch.zeros_like(p) if p.grad is None
+                                else p.grad for p in params])
+            for p, g in zip(params, grads):
+                p.grad = g
     return loss, losses, out
 
 
@@ -287,13 +296,14 @@ def make_train_step(model: CvaMVSNet, config: Dict[str, Any],
             with torch.no_grad():
                 for p, b in zip(params, base):
                     p.copy_(b)
-        state.optimizer.step()
-        state.scheduler.step()
+        with _TIMER.span("train_optimizer"):
+            state.optimizer.step()
+            state.scheduler.step()
         state.step += 1
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in losses.items()}}
         if with_metrics:
-            with torch.no_grad():
+            with torch.no_grad(), _TIMER.span("train_metrics"):
                 errs = eval_errors(out, batch)
             metrics.update({f"{s}/{k}": v for s, d in errs.items()
                             for k, v in d.items()})
