@@ -142,8 +142,8 @@ Phases, each printing its numbers before the last line:
               filter once); the program's stage-3 sha256 beside the eager
               f32 model's (the first differing op named if they differ);
               ms a runner keyframe from the program (ExportedRunner) and
-              from the eager f32 model (MvsnetRunner), host clock, median
-              of 5; then a weightless unit (model.pt2, model_config.json
+              from the f32 model's CUDA graph (MvsnetRunner), host clock,
+              median of 5; then a weightless unit (model.pt2, model_config.json
               and the pack, exported at 256x192 from replica_traj's first
               "val" window) serves tandem_dataset on the fixture's 64
               frames: the boot self-check, >= SLAM_MIN_FRAMES frames, ATE
@@ -1513,8 +1513,8 @@ def phase_export(dev, pkl_ate: float) -> dict:
     the edge filter once (its kernels), P5 and P3 not; the program's
     stage-3 sha256 beside the eager f32 model's (the first differing op
     named if they differ); a runner keyframe served from the program
-    (ExportedRunner) and from the eager f32 model (MvsnetRunner), host
-    clock, synced, median of 5 after a warm-up. Meanwhile a second process
+    (ExportedRunner) and from the f32 model's CUDA graph (MvsnetRunner),
+    host clock, synced, median of 5 after a warm-up. Meanwhile a second process
     runs ``python -m tandem_tpu_torch.cli.tandem_export`` at
     replica_traj's 256x192 on the fixture's first "val" window; a
     weightless unit of its model.pt2, device record, model_config.json and
@@ -1625,9 +1625,9 @@ def phase_export(dev, pkl_ate: float) -> dict:
         K = pack["K3"][0]
         dmin, dmax = float(pack["depth_min"][0]), float(pack["depth_max"][0])
         times = {}
-        for name, r in (("program", exported), ("eager f32", runner),
+        for name, r in (("program", exported), ("graphed f32", runner),
                         ("program again", exported),
-                        ("eager f32 again", runner)):
+                        ("graphed f32 again", runner)):
             def keyframe():
                 r.call_async(bgrs, poses, K, dmin, dmax)
                 return r.get_result(device=True)

@@ -27,10 +27,23 @@ The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
 float32, or bfloat16 as the JAX runtime deploys it); the depth and
 confidence it hands on are float32 in both.
 
+On the card (one device, no ``devices``) the runner serves the stage-3
+forward and the edge filter by replaying a CUDA graph of them
+(``GraphedStage3``): one graph launch in place of ~1,300 eager ones a
+keyframe, the same kernels in the same order on the same inputs. The
+wrappers' counts ``warp_sample.launches``, ``edge_filter.calls`` and
+``edge_filter.launches`` count where the kernels launch: a capture
+launches none and adds nothing, each replay adds what the capture
+recorded.
+
 Spans (``utils/timer.py``; the backend hands the runner its Timer):
 ``mvsnet_pack``, ``mvsnet_upload`` and ``mvsnet_dispatch`` (the enqueue of
-the stage-3 forward and the edge filter) on the host, ``mvsnet`` on the
-runner's stream around them, and ``mvsnet_result``.
+the stage-3 forward and the edge filter: on the card the copies into the
+graph's inputs, its replay and the copies of its outputs) on the host,
+``mvsnet`` on the runner's stream around them, and ``mvsnet_result``.
+Counters, on the card: ``mvsnet_graph_captures``, 1 a capture, and
+``mvsnet_graph_replays``, 1 a call a graph served and 0 a call that ran
+eagerly.
 """
 
 from __future__ import annotations
@@ -45,6 +58,8 @@ from ..models import convert
 from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
 from ..models.edge_filter import filter_edges
 from ..native_bridge import bgr_pack_u8
+from ..ops.bilinear_sample import warp_sample
+from ..ops.edge_kth import edge_filter
 from ..utils.timer import Timer
 
 
@@ -73,6 +88,8 @@ class MvsnetRunner:
             from ..parallel import build_view_sharded_forward
             self._forward = _ShardedStage3(
                 build_view_sharded_forward(self.model, devices))
+        elif self.device.type == "cuda":
+            self._forward = GraphedStage3(Stage3Forward(self.model))
         else:
             self._forward = Stage3Forward(self.model)
 
@@ -143,7 +160,14 @@ class MvsnetRunner:
                 inputs = self._device_inputs(image, Ks, c2w, depth_min,
                                              depth_max, discard)
             with self.timer.span("mvsnet_dispatch"):
-                return self._forward(*inputs)
+                outputs = self._forward(*inputs)
+        served = getattr(self._forward, "served", None)
+        if served is not None:
+            self.timer.count("mvsnet_graph_replays",
+                             int(served != "eager"))
+            if served == "capture":
+                self.timer.count("mvsnet_graph_captures")
+        return outputs
 
     def _device_inputs(self, image, Ks, c2w, depth_min, depth_max,
                        discard) -> tuple:
@@ -198,6 +222,98 @@ class MvsnetRunner:
         self._event = None
         self._ready = True
         return result
+
+
+def graph_key(tensors: Sequence[torch.Tensor],
+              discard_percentage: torch.Tensor) -> Optional[tuple]:
+    """What a CUDA graph of the stage-3 forward depends on in its inputs:
+    the seven device tensors' shapes and dtypes, and the discard
+    percentage's host value (the edge filter turns it into ranks inside its
+    packed argument block when the graph is captured). None for a
+    percentage off the CPU: reading it would wait for the card."""
+    if discard_percentage.device.type != "cpu":
+        return None
+    return (tuple((tuple(x.shape), x.dtype) for x in tensors),
+            tuple(discard_percentage.tolist()))
+
+
+class GraphedStage3:
+    """``Stage3Forward``'s contract served by replaying CUDA graphs of it,
+    one a ``graph_key``. A key's first call runs the eager forward, which
+    warms up what a capture cannot do (cuDNN's plans, the kernel library's
+    build, the cached constants, cuBLAS's workspace on the stream); its
+    second captures a graph on the current stream and replays it, and
+    every later call replays it. A call without a key runs eagerly.
+    ``served`` says how the last call was served: ``"eager"``,
+    ``"capture"`` (captured, then replayed) or ``"replay"``.
+
+    Each call copies the seven device inputs into the graph's own and
+    hands out copies of its outputs, so no tensor handed out is rewritten
+    by a later replay."""
+
+    def __init__(self, forward: Stage3Forward):
+        self.forward = forward
+        self._graphs: dict = {}     # key -> _CapturedForward, None: seen once
+        self.served = None
+
+    def __call__(self, image, K1, K2, K3, cam_to_world, depth_min,
+                 depth_max, discard_percentage):
+        tensors = (image, K1, K2, K3, cam_to_world, depth_min, depth_max)
+        key = graph_key(tensors, discard_percentage)
+        if key is None or key not in self._graphs:
+            if key is not None:
+                self._graphs[key] = None
+            self.served = "eager"
+            return self.forward(*tensors, discard_percentage)
+        graph = self._graphs[key]
+        self.served = "replay"
+        if graph is None:
+            graph = self._graphs[key] = _CapturedForward(
+                self.forward, tensors, discard_percentage)
+            self.served = "capture"
+        return graph(tensors)
+
+
+# The wrappers' counts that the stage-3 forward moves: (function, attribute)
+_COUNTS = ((warp_sample, "launches"), (edge_filter, "launches"),
+           (edge_filter, "calls"))
+
+
+def _read_counts() -> list:
+    return [getattr(fn, name) for fn, name in _COUNTS]
+
+
+def _add_counts(deltas):
+    for (fn, name), n in zip(_COUNTS, deltas):
+        setattr(fn, name, getattr(fn, name) + n)
+
+
+class _CapturedForward:
+    """One CUDA graph of the stage-3 forward, captured on the current
+    stream into a memory pool of its own, with its static inputs and
+    outputs. The wrappers count the kernels a capture records; no kernel
+    launches then, so the counts are taken back and added at each
+    replay."""
+
+    def __init__(self, forward, tensors, discard_percentage):
+        stream = torch.cuda.current_stream(tensors[0].device)
+        self.inputs = tuple(torch.empty_like(x) for x in tensors)
+        self.graph = torch.cuda.CUDAGraph()
+        before = _read_counts()
+        # thread_local: another thread's CUDA calls (the tracker's) may go
+        # on while this one captures the runner's stream
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            self.outputs = forward(*self.inputs, discard_percentage)
+        self.launches = [b - a for a, b in zip(before, _read_counts())]
+        _add_counts(-n for n in self.launches)
+
+    def __call__(self, tensors) -> tuple:
+        for static, x in zip(self.inputs, tensors):
+            static.copy_(x)
+        self.graph.replay()
+        _add_counts(self.launches)
+        return tuple(y.clone() for y in self.outputs)
 
 
 class _ShardedStage3:

@@ -492,6 +492,85 @@ def test_exported_program_equals_eager_on_card(dev, tmp_path):
         te.load_program(str(tmp_path), "cpu")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_graphed_runner_equals_eager_on_card(dev, dtype, monkeypatch):
+    """MvsnetRunner on the card (64x96, V = 4, planes 8/4/4, random
+    weights) serves its stage-3 forward and edge filter from CUDA graphs:
+    over three calls with other images, poses and depth ranges every
+    output equals the eager ``Stage3Forward``'s on the same device inputs
+    bit for bit; one graph is captured (the second call) and replayed by
+    the second and third; the wrappers count each call's launches once,
+    eager, captured or replayed; no tensor handed out is rewritten by a
+    later call; and a second discard percentage captures a graph of its
+    own, equal to the eager forward at that percentage."""
+    from collections import deque
+
+    from tandem_tpu_torch.models.convert import state_dict_to_flax
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet, Stage3Forward
+    from tandem_tpu_torch.ops.bilinear_sample import warp_sample
+    from tandem_tpu_torch.pipeline.mvsnet_runner import (GraphedStage3,
+                                                         MvsnetRunner)
+    from tandem_tpu_torch.utils import timer as tm
+    monkeypatch.setattr(tm, "LOG", deque(maxlen=tm.LOG_ENTRIES))
+    torch.manual_seed(0)
+    Hm, Wm, V = 64, 96, 4
+    variables = state_dict_to_flax(CvaMVSNet(depth_num=(8, 4, 4),
+                                             view_aggregation=True)
+                                   .state_dict())
+    runner = MvsnetRunner(CvaMVSNet(depth_num=(8, 4, 4),
+                                    view_aggregation=True, dtype=dtype),
+                          variables, Hm, Wm, view_num=V, device=dev)
+    runner.timer = tm.Timer()
+    graphed = runner._forward
+    assert isinstance(graphed, GraphedStage3)
+    eager = Stage3Forward(runner.model)
+    rng = np.random.RandomState(2)
+    K = np.array([[70.0, 0, (Wm - 1) / 2], [0, 70.0, (Hm - 1) / 2],
+                  [0, 0, 1]], np.float32)
+    names = ("depth", "confidence", "depth_dense", "confidence_dense")
+
+    def call(n, discard):
+        bgrs = [rng.randint(0, 256, (Hm, Wm, 3), np.uint8) for _ in range(V)]
+        poses = []
+        for v in range(V):
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = [0.1 * (v - 1) + 0.01 * n, 0.02 * v, 0.03 * n]
+            poses.append(pose)
+        dmin, dmax = 0.4 + 0.1 * n, 5.0 + n
+        launches = (warp_sample.launches, edge_filter.calls,
+                    edge_filter.launches)
+        runner.call_async(bgrs, poses, K, dmin, dmax, discard)
+        got = runner.get_result(device=True)
+        launched = (warp_sample.launches - launches[0],
+                    edge_filter.calls - launches[1],
+                    edge_filter.launches - launches[2])
+        with torch.no_grad():
+            want = eager(*runner._device_inputs(
+                *runner.pack_inputs(bgrs, poses, K), dmin, dmax, discard))
+        for name, w in zip(names, want):
+            assert torch.equal(got[name], w[0]), (n, name)
+        return got, launched
+
+    runs = [call(n, 10.0) for n in range(3)]
+    kept = [{k: v.clone() for k, v in got.items()} for got, _ in runs[:2]]
+    later = [call(n, 20.0) for n in range(3, 5)]
+    assert [launched for _, launched in runs + later] == [
+        (3 * (V - 1), 1, KERNELS_PER_CALL)] * 5
+    torch.cuda.synchronize()
+    for (got, _), want in zip(runs, kept):
+        for name in names:
+            assert torch.equal(got[name], want[name])
+    outs = [x for captured in graphed._graphs.values()
+            for x in captured.outputs]
+    for got, _ in runs[1:] + later[1:]:
+        for x in got.values():
+            assert all(x.data_ptr() != y.data_ptr() for y in outs)
+    samples = [(e.name, e.value) for e in tm.LOG if isinstance(e, tm.Sample)]
+    assert samples.count(("mvsnet_graph_captures", 1)) == 2
+    assert [v for n, v in samples if n == "mvsnet_graph_replays"] == [
+        0, 1, 1, 0, 1]
+
+
 def test_deconv_bf16_matches_f32_cast_down(dev):
     """bf16 cuDNN ConvTranspose3d at the four-depth stages' stride (1, 2, 2)
     and output_padding (0, 1, 1) against the f32 layer on the same bf16
