@@ -50,7 +50,15 @@ Phases, each printing its numbers before the last line:
               gradient in float64, with its event and profiler device
               times, its byte bound, grid_sample's backward on the
               same grid, the samples a touched cell and its atomics;
-              row_gather, also at P4's shape;
+              row_gather, also at P4's shape; the variance cost volume's
+              step warp_variance (the same source) at CasMVSNet's three
+              DTU stages (1152x864: 48x216x288x32, 32x432x576x16,
+              8x864x1152x8), four source views a stage (the golden pack's
+              views 1-4 swept into view 0), f32 and bf16: both sums equal
+              to warp_variance_plain's after every view, one launch a
+              view; the stage's four views in f32 by events and the
+              profiler against the plain version, grid_sample with two
+              in-place adds, and the bound of harness/variance.py's bytes;
   4. track kernels  K6 track_reduce, in the Huber and the Student-t
               weighting, against a float64 evaluation of its plain version
               at the tracker's level caps (640x480 level 0, the six
@@ -77,6 +85,14 @@ Phases, each printing its numbers before the last line:
               cap);
   5. probes   the torch ports of the three Pallas probe scripts at their
               own shapes (tandem_tpu_torch/experiments), M rows/s;
+     casmvsnet  the map path of the cascade without view aggregation at
+              CasMVSNet's DTU test size: MvsnetRunner at 5 views and
+              1152x864 in f32 with a unit of seeded weights (the
+              benchmark's mapping_seeded.write_unit) on a window of the
+              benchmark's scene; the eager call, the CUDA graph's capture
+              and a replay equal bit for bit, each with 12 warp_variance
+              launches (3 stages x 4 source views) and one edge filter,
+              warp_sample none;
   6. golden   the trained abl04 unit (exported/tandem, 640x480, V=7)
               replays sample_inputs.npz in f32: worst MAE < 1e-2 over all
               12 outputs, the reference's own boot-check bar; the sha256
@@ -380,6 +396,13 @@ SAMPLE_OPS = 40
 # abl04 at 640x480: per stage (depth planes, H, W, feature channels).
 STAGE_SHAPES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
                 "stage3": (4, 480, 640, 8)}
+# CasMVSNet's DTU test at 1152x864, as the benchmark's
+# mapping.casmvsnet_dtu_1152x864 cell runs it: the same, and the source
+# views a stage.
+DTU_STAGE_SHAPES = {"stage1": (48, 216, 288, 32),
+                    "stage2": (32, 432, 576, 16),
+                    "stage3": (8, 864, 1152, 8)}
+DTU_SOURCE_VIEWS = 4
 # The same at 256x192, the slam phase's fixture.
 SLAM_STAGE_SHAPES = {"stage1": (48, 48, 64, 32), "stage2": (4, 96, 128, 16),
                      "stage3": (4, 192, 256, 8)}
@@ -420,6 +443,11 @@ KERNELS = {
                          "the gradient of P5 + P3's function on the main "
                          "path: the scatter-add XLA derives for jax.grad "
                          "from the gather of tandem_tpu/ops/warp.py:147-157"),
+    "warp_variance": ("tandem_tpu_torch/csrc/bilinear_sample.cu",
+                      "the variance cost volume without view aggregation, "
+                      "tandem_tpu/models/cva_mvsnet.py:194 + :209-210 "
+                      "(XLA: each view's warped volume and its square "
+                      "added to two sums; no Pallas kernel)"),
     "row_gather": ("tandem_tpu_torch/csrc/row_gather.cu",
                    "experiments/pallas_gather_probe.py:35 "
                    "experiments/pallas_gather_probe.py:59 "
@@ -444,7 +472,8 @@ def wrappers() -> dict:
     from tandem_tpu_torch.ops.bilinear_index import bilinear_index
     from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
                                                       warp_sample,
-                                                      warp_sample_grad)
+                                                      warp_sample_grad,
+                                                      warp_variance)
     from tandem_tpu_torch.ops.corner_blend import corner_blend
     from tandem_tpu_torch.ops.edge_kth import edge_filter, edge_kth_value
     from tandem_tpu_torch.ops.row_gather import row_gather
@@ -455,6 +484,7 @@ def wrappers() -> dict:
             "corner_blend": (corner_blend,),
             "bilinear_sample": (warp_sample, bilinear_sample),
             "warp_sample_grad": (warp_sample_grad,),
+            "warp_variance": (warp_variance,),
             "row_gather": (row_gather,), "track_reduce": (track_reduce,),
             "track_lm": (lm_level,)}
 
@@ -833,9 +863,10 @@ def _sample_kernels(dev, out: dict):
 
 
 def _golden_sweep(dev, stage: str, D: int, H: int, W: int,
-                  behind: bool = False, shapes: dict = STAGE_SHAPES):
-    """The plane sweep of the golden pack's view 0 (reference) from view 1
-    (source) at one abl04 stage of ``shapes``: the stage's intrinsics
+                  behind: bool = False, shapes: dict = STAGE_SHAPES,
+                  view: int = 1):
+    """The plane sweep of the golden pack's view 0 (reference) from view
+    ``view`` (source) at one stage of ``shapes``: the stage's intrinsics
     (the pack's, scaled to W), and the depth hypotheses as the model makes
     them (uniform at stage 1; adaptive around the pack's upsampled depth of
     the stage before after it). ``behind`` moves the source camera forward
@@ -855,7 +886,7 @@ def _golden_sweep(dev, stage: str, D: int, H: int, W: int,
     K = torch.from_numpy(pack[f"K{i + 1}"]).to(dev)
     K[..., :2, :] *= W / STAGE_SHAPES[stage][2]
     c2w = torch.from_numpy(pack["cam_to_world"]).to(dev)
-    src, ref = c2w[:, 1].clone(), c2w[:, 0].contiguous()
+    src, ref = c2w[:, view].clone(), c2w[:, 0].contiguous()
     D1, H1, W1, _ = shapes["stage1"]
     depth, base = uniform_depth_range(
         depth_min=torch.from_numpy(pack["depth_min"]).to(dev),
@@ -1244,12 +1275,137 @@ def _sweep_grad_kernel(dev, out: dict):
     out["warp_sample_grad"] = res
 
 
+def _variance_kernel(dev, out: dict):
+    """The variance cost volume's step (warp_variance, one launch a source
+    view) against its plain version at CasMVSNet's DTU stages, four source
+    views a stage, in f32 and bf16: both sums equal after every view. A
+    stage's four views in f32 timed against the plain version and against
+    grid_sample with two in-place adds, and held against the bound of
+    their bytes and operations (``benchmark/harness/variance.py``); the
+    kernel's row is a keyframe's 12 launches, the three stages summed."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark.harness.variance import variance_work
+    from tandem_tpu_torch.ops.bilinear_sample import (sweep_positions,
+                                                      warp_variance,
+                                                      warp_variance_plain)
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    gen = torch.Generator(device=dev).manual_seed(5)
+    res = {"max_abs_err": 0.0}
+    total = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "library_ms": 0.0,
+             "bytes": 0, "ops": 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for stage, (D, H, W, C) in DTU_STAGE_SHAPES.items():
+            views = range(1, DTU_SOURCE_VIEWS + 1)
+            feats = [torch.randn((1, H, W, C), generator=gen,
+                                 device=dev).to(dtype) for _ in views]
+            sweeps = [_golden_sweep(dev, stage, D, H, W,
+                                    shapes=DTU_STAGE_SHAPES, view=v)
+                      for v in views]
+            mats, depth = [m for m, _, _ in sweeps], sweeps[0][1]
+            shape = (1, D, H, W, C)
+            plain_sums = (torch.empty(shape, dtype=dtype, device=dev),
+                          torch.empty(shape, dtype=dtype, device=dev))
+
+            def kernel():
+                sums = None
+                for feat, mat in zip(feats, mats):
+                    sums = warp_variance(feat, mat, depth, sums)
+                return sums
+
+            def plain():
+                for i, (feat, mat) in enumerate(zip(feats, mats)):
+                    warp_variance_plain(feat, mat, depth, *plain_sums,
+                                        i == 0)
+                return plain_sums
+            launches = warp_variance.launches
+            sums = None
+            for i, (feat, mat) in enumerate(zip(feats, mats)):
+                sums = warp_variance(feat, mat, depth, sums)
+                warp_variance_plain(feat, mat, depth, *plain_sums, i == 0)
+                res["max_abs_err"] = max(res["max_abs_err"], _exact(
+                    f"warp_variance {dn} {stage} after source view {i + 1}",
+                    sums, plain_sums))
+            if warp_variance.launches - launches != DTU_SOURCE_VIEWS:
+                raise AssertionError(
+                    f"warp_variance {dn} {stage}: "
+                    f"{warp_variance.launches - launches} launches for "
+                    f"{DTU_SOURCE_VIEWS} source views")
+            if dtype != torch.float32:   # the configuration's dtype is timed
+                continue
+            grids = []
+            for feat, mat in zip(feats, mats):
+                px, py, z = sweep_positions(mat, depth, H, W)
+                grids.append(_grid_sample_args(feat, px, py, ~(z < 0.001),
+                                               H, W))
+            lib_sums = (torch.empty((1, C, D * H, W), dtype=dtype,
+                                    device=dev),
+                        torch.empty((1, C, D * H, W), dtype=dtype,
+                                    device=dev))
+
+            def library():
+                for i, gs in enumerate(grids):
+                    x = F.grid_sample(*gs, mode="bilinear",
+                                      padding_mode="zeros",
+                                      align_corners=True)
+                    if i == 0:
+                        lib_sums[0].copy_(x)
+                        torch.mul(x, x, out=lib_sums[1])
+                    else:
+                        lib_sums[0].add_(x)
+                        lib_sums[1].addcmul_(x, x)
+            library()      # the same sums (see warp_sample's grid_sample)
+            lib = lib_sums[0].reshape(C, D, H, W).permute(1, 2, 3, 0)
+            lib_err = float((lib - sums[0][0]).abs().max())
+            if not lib_err <= 1e-3 * float(sums[0].abs().max()):
+                raise AssertionError(f"grid_sample's sums differ from "
+                                     f"warp_variance's at {stage}: {lib_err}")
+            t = {"kernel": cuda_ms(kernel, iters=20),
+                 "plain": cuda_ms(plain, iters=5),
+                 "library": cuda_ms(library, iters=20)}
+            dev_ms = _device_ms(kernel)
+            nbytes = ops = 0
+            for i in range(DTU_SOURCE_VIEWS):
+                b, o = variance_work(D, H, W, C, dn, i == 0)
+                nbytes, ops = nbytes + b, ops + o
+            bound = _bound(nbytes, ops)
+            log(f"[kernels] warp_variance {stage} {dn} D={D} {W}x{H} C={C}, "
+                f"{DTU_SOURCE_VIEWS} source views: exact after every view, "
+                f"{DTU_SOURCE_VIEWS} launches; kernel {t['kernel']:.4f} ms "
+                f"(events) {dev_ms:.4f} ms (device), bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+                f"{nbytes / 1e6:.1f} MB): share "
+                f"{bound['bound_ms'] / dev_ms:.1%} of the device time; plain "
+                f"{t['plain']:.4f} ms; grid_sample + add_/addcmul_ "
+                f"{t['library']:.4f} ms (events)")
+            total.update(ms=total["ms"] + t["kernel"],
+                         plain_ms=total["plain_ms"] + t["plain"],
+                         device_ms=total["device_ms"] + dev_ms,
+                         library_ms=total["library_ms"] + t["library"],
+                         bytes=total["bytes"] + nbytes,
+                         ops=total["ops"] + ops)
+            del feats, sweeps, mats, plain_sums, sums, grids, lib_sums
+            torch.cuda.empty_cache()
+    bound = _bound(total.pop("bytes"), total.pop("ops"))
+    log(f"[kernels] warp_variance a 1152x864 f32 keyframe "
+        f"({3 * DTU_SOURCE_VIEWS} launches): {total['device_ms']:.4f} ms "
+        f"(device), bound {bound['bound_ms']:.4f} ms: share "
+        f"{bound['bound_ms'] / total['device_ms']:.1%}")
+    res.update(total, library="grid_sample on the warp's positions, then "
+                              "add_ and addcmul_ into the two sums",
+               **bound)
+    out["warp_variance"] = res
+
+
 def phase_kernels(dev) -> dict:
     out = {}
     _edge_kth(dev, out)
     _sample_kernels(dev, out)
     _sweep_kernels(dev, out)
     _sweep_grad_kernel(dev, out)
+    _variance_kernel(dev, out)
     _row_gather(dev, out)
     return out
 
@@ -1264,6 +1420,84 @@ def phase_probes() -> dict:
     counts = read_counts()
     require_launched("probes", counts,
                      ("row_gather", "corner_blend", "bilinear_index"))
+    return counts
+
+
+def phase_casmvsnet(dev) -> dict:
+    """CasMVSNet's map path at its DTU test size: MvsnetRunner at 5 views
+    and 1152x864 in f32 with a unit of seeded weights (the benchmark's
+    ``mapping_seeded.write_unit``, its BatchNorm statistics calibrated on
+    the benchmark's scene) on one of the scene's keyframe windows. The
+    eager call, the call that captures the CUDA graph and a replay give
+    the same four outputs bit for bit, each with 12 warp_variance
+    launches (3 stages x 4 source views), counted at each replay, and
+    one edge filter call; warp_sample launches none. Returns the
+    launches."""
+    import tempfile
+
+    import torch
+
+    from benchmark.traffic import mapping_seeded
+    from tandem_tpu_torch.cli.golden import load_model_config
+    from tandem_tpu_torch.models.convert import load_variables
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.pipeline.mvsnet_runner import MvsnetRunner
+    bench = REPO / "benchmark"
+    config = json.loads((bench / "configs" /
+                         "casmvsnet_dtu_1152x864.json").read_text())
+    traffic = json.loads((bench / "workloads" /
+                          "kf_stream_seeded.json").read_text())
+    im = config["image"]
+    V = config["views"]
+    windows = mapping_seeded.calibration_windows(config, traffic, dev)
+    reset_counts()
+    with tempfile.TemporaryDirectory() as unit:
+        mapping_seeded.write_unit(Path(unit), config["model"], 2 ** 31 + 19,
+                                  dev, windows)
+        runner = MvsnetRunner(
+            CvaMVSNet(**load_model_config(unit)),
+            load_variables(str(Path(unit) / "model_variables.pkl")),
+            im["height"], im["width"], view_num=V, device=dev)
+    rec = windows[0]
+    names = ("depth", "confidence", "depth_dense", "confidence_dense")
+    outs, served, per_call = [], [], []
+    for _ in range(3):
+        before, calls = read_counts(), edge_calls()
+        t0 = time.perf_counter()
+        runner.call_async(rec["bgrs"], rec["c2w"], rec["K"], rec["dmin"],
+                          rec["dmax"], rec["discard"])
+        got = runner.get_result(device=True)
+        outs.append([got[k].clone() for k in names])
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3)
+        served.append(runner._forward.served)
+        after = read_counts()
+        if (after["warp_variance"] - before["warp_variance"]
+                != 3 * (V - 1) or edge_calls() - calls != 1):
+            raise AssertionError(
+                f"casmvsnet {served[-1]}: warp_variance launched "
+                f"{after['warp_variance'] - before['warp_variance']} times "
+                f"and the edge filter {edge_calls() - calls} (need "
+                f"{3 * (V - 1)} and 1)")
+    if served != ["eager", "capture", "replay"]:
+        raise AssertionError(f"casmvsnet: the runner served {served}")
+    for call, out in zip(served[1:], outs[1:]):
+        if not all(torch.equal(a, b) for a, b in zip(out, outs[0])):
+            raise AssertionError(f"casmvsnet: the {call} differs from the "
+                                 "eager call")
+    counts = read_counts()
+    require_not_launched("casmvsnet", counts, ("bilinear_sample",))
+    depth = outs[0][2]
+    log(f"[casmvsnet] {im['width']}x{im['height']} V={V} f32 seeded "
+        f"(calibrated) weights: eager, capture and replay equal bit for "
+        f"bit, {3 * (V - 1)} warp_variance launches and 1 edge filter a "
+        f"call; ms a call (host clock, synced) "
+        + ", ".join(f"{s} {t:.1f}" for s, t in zip(served, per_call))
+        + f"; depth {float(depth.min()):.3f}-{float(depth.max()):.3f} m "
+        f"(std {float(depth.std()):.3f}); peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del runner, outs
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4115,6 +4349,8 @@ def main() -> int:
     lap("track lm")
     paths = {"probes": phase_probes()}
     lap("probes")
+    paths["casmvsnet_1152x864"] = phase_casmvsnet(dev)
+    lap("casmvsnet")
     for dtype, tol in ((torch.float32, GOLDEN_TOL),
                        (torch.bfloat16, BF16_TOL)):
         runner, pack = load_runner(dev, dtype)

@@ -13,11 +13,17 @@ Usage:
 
 CKPT may be a checkpoint directory of the port's trainer, a
 ``model_variables.pkl`` of the JAX package or a reference torch checkpoint.
+The architecture is the ``model_config.json`` beside it (in a checkpoint
+directory, or in the unit folder that holds the file), as the runtime
+builds a unit's model; ``--depth-num`` and ``--[no-]view-aggregation``
+override it, and without one they default to 48,32,8 with view
+aggregation.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pickle
 import time
 
@@ -34,16 +40,41 @@ parser.add_argument("--depth-max", type=float, default=10.0)
 parser.add_argument("--pose-ext", default="gt")
 parser.add_argument("--tuples-ext", default="dso_optimization_windows")
 parser.add_argument("--seed", type=int, default=1)
-parser.add_argument("--view-aggregation", action="store_true", default=True)
-parser.add_argument("--depth-num", default="48,32,8",
+parser.add_argument("--view-aggregation",
+                    action=argparse.BooleanOptionalAction, default=None,
+                    help="the gated cascade (CVA-MVSNet) or, with "
+                         "--no-view-aggregation, the variance one (CasMVSNet); "
+                         "default: model_config.json's, else gated")
+parser.add_argument("--depth-num", default=None,
                     help="per-stage depth planes; 48,4,4 = the deployed "
-                         "abl04 architecture")
+                         "abl04 architecture (default: model_config.json's, "
+                         "else 48,32,8)")
 parser.add_argument("--num-save-images", type=int, default=4)
 parser.add_argument("--limit", type=int, default=0, help="eval first N only")
 parser.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
 parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the card (default) or the CPU")
+
+
+def model_kwargs(args) -> dict:
+    """CvaMVSNet's architecture for the checkpoint: its model_config.json
+    (in the checkpoint directory, or beside the checkpoint file) where
+    there is one, with the flags given on top; else the flags or their
+    defaults."""
+    from .golden import load_model_config
+
+    ckpt = args.ckpt.rstrip("/")
+    folder = ckpt if os.path.isdir(ckpt) else os.path.dirname(ckpt)
+    kwargs = {"depth_num": (48, 32, 8), "view_aggregation": True}
+    if os.path.exists(os.path.join(folder, "model_config.json")):
+        kwargs = load_model_config(folder)
+    if args.depth_num is not None:
+        kwargs["depth_num"] = tuple(int(x) for x in
+                                    str(args.depth_num).split(","))
+    if args.view_aggregation is not None:
+        kwargs["view_aggregation"] = args.view_aggregation
+    return kwargs
 
 
 def write_report(path_base: str, errors: dict, fps: float, args):
@@ -93,13 +124,11 @@ def main(args) -> dict:
         device = torch.device("cuda", torch.cuda.current_device())
     else:
         device = torch.device("cpu")
-    model = CvaMVSNet(depth_num=tuple(int(x) for x in
-                                      str(args.depth_num).split(",")),
-                      view_aggregation=args.view_aggregation,
-                      dtype=torch.bfloat16 if args.dtype == "bfloat16"
-                      else torch.float32)
-    model.load_state_dict(load_any(args.ckpt,
-                                   view_aggregation=args.view_aggregation))
+    kwargs = model_kwargs(args)
+    model = CvaMVSNet(**kwargs, dtype=torch.bfloat16
+                      if args.dtype == "bfloat16" else torch.float32)
+    model.load_state_dict(load_any(
+        args.ckpt, view_aggregation=kwargs["view_aggregation"]))
     model.to(device)
     eval_step = make_eval_step(model)
 

@@ -5,7 +5,10 @@
 //     matrix and the depth, and the output is the warped volume
 //     (B, D, H, W, C);
 //   explicit (tandem_bilinear_sample): the positions are given, (B, N).
-// And the plane sweep's gradient with respect to the image
+// And the variance cost volume's step (tandem_warp_variance): the plane
+// sweep's samples of one source view added straight into the running sum
+// and sum of squares of the cost volume, in place, with no warped volume
+// in device memory. And the plane sweep's gradient with respect to the image
 // (tandem_warp_sample_grad, at the end of the file): the same cells, each
 // thread summing a run of one pixel's planes in registers and adding a
 // sum to the image gradient with one vector atomic a corner where the
@@ -183,12 +186,57 @@ __device__ __forceinline__ Cell shfl_cell(const Cell& c, int src) {
   return o;
 }
 
-// Channels [c, c + VEC) of one sample: the four corners (zero outside the
-// image), blended in f32, rounded once, stored at dst.
+// The running sums of a variance cost volume (tandem_warp_variance), of
+// the warped volume's layout: the first source view writes its samples x
+// and their squares, each later view adds them.
+template <typename T>
+struct VarianceSums {
+  T* sum;
+  T* sq;
+  bool first;
+};
+
+// A blend's VEC channels stored at out + at: the warped volume's values,
+// rounded once to T.
 template <typename T, int VEC>
+__device__ __forceinline__ void store(T* __restrict__ out, int at,
+                                      const float (&a)[VEC]) {
+  *reinterpret_cast<Vec<T, VEC>*>(out + at) = round_vec<T, VEC>(a);
+}
+
+// ... or added to the variance's sums: x = the blend rounded once to T,
+// x x rounded once to T, and each sum + term rounded once to T (the plain
+// version's roundings in its order; none in float32 but the operations').
+template <typename T, int VEC>
+__device__ __forceinline__ void store(const VarianceSums<T>& out, int at,
+                                      const float (&a)[VEC]) {
+  using V = Vec<T, VEC>;
+  const V x = round_vec<T, VEC>(a);
+  float s[VEC], q[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    s[e] = to_f32(x.v[e]);
+    q[e] = to_f32(from_f32<T>(__fmul_rn(s[e], s[e])));
+  }
+  if (!out.first) {
+    const V s0 = *reinterpret_cast<const V*>(out.sum + at);
+    const V q0 = *reinterpret_cast<const V*>(out.sq + at);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      s[e] = __fadd_rn(to_f32(s0.v[e]), s[e]);
+      q[e] = __fadd_rn(to_f32(q0.v[e]), q[e]);
+    }
+  }
+  *reinterpret_cast<V*>(out.sum + at) = round_vec<T, VEC>(s);
+  *reinterpret_cast<V*>(out.sq + at) = round_vec<T, VEC>(q);
+}
+
+// Channels [c, c + VEC) of one sample: the four corners (zero outside the
+// image), blended in f32, then stored at ``at`` of out (``store``).
+template <typename T, int VEC, typename Out>
 __device__ __forceinline__ void blend(const T* __restrict__ image,
                                       const Cell& s, int c, int H, int W,
-                                      int C, T* __restrict__ dst) {
+                                      int C, const Out& out, int at) {
   using V = Vec<T, VEC>;
   const int x = (s.xy & 0xffff) - 1;
   const int y = (s.xy >> 16) - 1;
@@ -210,19 +258,19 @@ __device__ __forceinline__ void blend(const T* __restrict__ image,
     t = __fadd_rn(t, __fmul_rn(to_f32(g01.v[e]), s.w01));
     a[e] = __fadd_rn(t, __fmul_rn(to_f32(g11.v[e]), s.w11));
   }
-  *reinterpret_cast<V*>(dst) = round_vec<T, VEC>(a);
+  store<T, VEC>(out, at, a);
 }
 
-// The warp's 32 samples (own: lane l's cell; n of them valid), written to
-// out[j * C, (j + 1) * C) for sample j.
-template <typename T, int VEC>
+// The warp's 32 samples (own: lane l's cell; n of them valid), stored at
+// [j * C, (j + 1) * C) of out for sample j.
+template <typename T, int VEC, typename Out>
 __device__ __forceinline__ void sample_row(const T* __restrict__ image,
                                            const Cell& own, int n, int lane,
                                            int H, int W, int C,
-                                           T* __restrict__ out) {
+                                           const Out& out) {
   const int L = C / VEC;  // lanes a sample
   if (L == 1) {           // one round, each lane its own sample
-    if (lane < n) blend<T, VEC>(image, own, 0, H, W, C, out + lane * C);
+    if (lane < n) blend<T, VEC>(image, own, 0, H, W, C, out, lane * C);
   } else if (32 % L == 0) {  // a round is 32 / L whole samples
     const int per = 32 / L;
     const int j0 = lane / L;
@@ -231,7 +279,7 @@ __device__ __forceinline__ void sample_row(const T* __restrict__ image,
     for (int k = 0; k < L; ++k) {
       const int j = j0 + k * per;
       const Cell s = shfl_cell(own, j);
-      if (j < n) blend<T, VEC>(image, s, c, H, W, C, out + j * C + c);
+      if (j < n) blend<T, VEC>(image, s, c, H, W, C, out, j * C + c);
     }
   } else {                // C / VEC = 3, 5, 6, 7, ... or > 32
 #pragma unroll 2
@@ -239,7 +287,7 @@ __device__ __forceinline__ void sample_row(const T* __restrict__ image,
       const int j = t / L;
       const int c = (t - j * L) * VEC;
       const Cell s = shfl_cell(own, j);
-      if (j < n) blend<T, VEC>(image, s, c, H, W, C, out + j * C + c);
+      if (j < n) blend<T, VEC>(image, s, c, H, W, C, out, j * C + c);
     }
   }
 }
@@ -365,6 +413,33 @@ __global__ void __launch_bounds__(kWarps * 32)
     if (k >= t.np) break;  // uniform
     sample_row<T, VEC>(image, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
                        dst + k * t.plane_size * g.C);
+  }
+}
+
+// The variance cost volume's step for one source view: the plane sweep's
+// samples, as warp_sample_kernel computes them, added to the running sum
+// and sum of squares in place (written by the first view). The eager form
+// writes the view's warped volume, squares it into a second and adds both
+// to the sums: 6 passes over a (D, H, W, C) volume a view against 4 here
+// (2 for the first view).
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    warp_variance_kernel(const T* __restrict__ img, Grid g,
+                         const float* __restrict__ mat,
+                         const float* __restrict__ depth, float min_depth,
+                         VarianceSums<T> sums) {
+  SweepTile t;
+  if (!sweep_tile<T>(g, mat, depth, min_depth, t)) return;
+  const T* image = img + t.b * g.H * g.W * static_cast<int64_t>(g.C);
+  const int64_t at =
+      ((t.b * g.D + t.d0) * t.plane_size + t.pix - t.lane) * g.C;
+#pragma unroll
+  for (int k = 0; k < kMaxPlanes; ++k) {
+    if (k >= t.np) break;  // uniform
+    const int64_t plane = at + k * t.plane_size * g.C;
+    sample_row<T, VEC>(image, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
+                       VarianceSums<T>{sums.sum + plane, sums.sq + plane,
+                                       sums.first});
   }
 }
 
@@ -660,7 +735,34 @@ dim3 grid_of(const Grid& g, int64_t planes) {
               static_cast<unsigned>(planes));
 }
 
-// The two launches, as functors on the runtime (type, vector width).
+// The launches, as functors on the runtime (type, vector width). The
+// plane sweep's output is the warped volume (a pointer) or the variance's
+// running sums (VarianceOut), and launch_sweep picks the kernel by it.
+struct VarianceOut {
+  void* sum;
+  void* sq;
+  bool first;
+};
+
+template <typename T, int VEC>
+void launch_sweep(dim3 grid, cudaStream_t stream, const T* img, Grid g,
+                  const float* mat, const float* depth, float min_depth,
+                  void* out) {
+  warp_sample_kernel<T, VEC><<<grid, kWarps * 32, 0, stream>>>(
+      img, g, mat, depth, min_depth, static_cast<T*>(out));
+}
+
+template <typename T, int VEC>
+void launch_sweep(dim3 grid, cudaStream_t stream, const T* img, Grid g,
+                  const float* mat, const float* depth, float min_depth,
+                  const VarianceOut& out) {
+  warp_variance_kernel<T, VEC><<<grid, kWarps * 32, 0, stream>>>(
+      img, g, mat, depth, min_depth,
+      VarianceSums<T>{static_cast<T*>(out.sum), static_cast<T*>(out.sq),
+                      out.first});
+}
+
+template <typename Out>
 struct SweepLaunch {
   const void* img;
   Grid g;
@@ -668,15 +770,14 @@ struct SweepLaunch {
   const float* mat;
   const float* depth;
   float min_depth;
-  void* out;
+  Out out;
   cudaStream_t stream;
   template <typename T, int VEC>
   int run() const {
     const int64_t groups = (g.D + g.planes_per_warp - 1) / g.planes_per_warp;
-    warp_sample_kernel<T, VEC><<<grid_of(g, B * groups), kWarps * 32, 0,
-                                 stream>>>(static_cast<const T*>(img), g, mat,
-                                           depth, min_depth,
-                                           static_cast<T*>(out));
+    launch_sweep<T, VEC>(grid_of(g, B * groups), stream,
+                         static_cast<const T*>(img), g, mat, depth,
+                         min_depth, out);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -773,6 +874,15 @@ struct SweepArgs {
 };
 static_assert(sizeof(SweepArgs) == 80, "SweepArgs layout");
 
+struct VarianceArgs {
+  SweepArgs sweep;     // its out: the running sum, (B, D, H, W, C) of img's
+                       // type; the sums aligned to vec too
+  void* sq;            // the running sum of squares, as the sum
+  int first;           // 1: write the sums (the first view), 0: add
+  int unused;
+};
+static_assert(sizeof(VarianceArgs) == 96, "VarianceArgs layout");
+
 struct SampleArgs {
   const void* img;     // (B, H, W, C) as above
   const float* px;     // (B, N) float32
@@ -785,9 +895,10 @@ struct SampleArgs {
 };
 static_assert(sizeof(SampleArgs) == 80, "SampleArgs layout");
 
-// Plane sweep: all arrays contiguous. Launches on ``stream`` without
-// synchronising; returns cudaGetLastError().
-extern "C" int tandem_warp_sample(const SweepArgs* a, cudaStream_t stream) {
+// The plane sweep's launch into ``out`` after the checks of its geometry
+// and tiling.
+template <typename Out>
+int sweep(const SweepArgs* a, const Out& out, cudaStream_t stream) {
   if (a->B <= 0 || a->D <= 0) return 0;
   const int planes = a->planes_per_warp, rows = a->rows_per_block;
   const int64_t groups = planes < 1 || planes > kMaxPlanes
@@ -800,8 +911,23 @@ extern "C" int tandem_warp_sample(const SweepArgs* a, cudaStream_t stream) {
   }
   const Grid g{a->D, a->H, a->W, planes, a->H, a->W, a->C, rows};
   return dispatch(a->bf16, a->vec,
-                  SweepLaunch{a->img, g, a->B, a->mat, a->depth,
-                              a->min_depth, a->out, stream});
+                  SweepLaunch<Out>{a->img, g, a->B, a->mat, a->depth,
+                                   a->min_depth, out, stream});
+}
+
+// Plane sweep: all arrays contiguous. Launches on ``stream`` without
+// synchronising; returns cudaGetLastError().
+extern "C" int tandem_warp_sample(const SweepArgs* a, cudaStream_t stream) {
+  return sweep(a, a->out, stream);
+}
+
+// The variance step of one source view: all arrays contiguous, the sums
+// of the warped volume's shape. Launches on ``stream`` without
+// synchronising; returns cudaGetLastError().
+extern "C" int tandem_warp_variance(const VarianceArgs* a,
+                                    cudaStream_t stream) {
+  return sweep(&a->sweep, VarianceOut{a->sweep.out, a->sq, a->first != 0},
+               stream);
 }
 
 // Explicit positions: all arrays contiguous. Launches on ``stream``

@@ -20,6 +20,13 @@ to deterministic algorithms for the whole process; the TF32 default would
 cost the f32 golden parity (the same trap as the TPU's default matmul
 precision).
 
+Without view aggregation (CasMVSNet's cascade) the cost volume is the
+variance of the V views' features. Inference adds each source view's
+samples and their squares straight into its two running sums
+(``ops/bilinear_sample.warp_variance``, one kernel a view on the card);
+training keeps each view's (warped, warped^2) terms, which autograd needs.
+Both sum in the same order and give the same volume.
+
 ``forward(..., train=True)`` is the JAX package's ``apply(..., train=True,
 mutable=["batch_stats"])``: gradients flow (the eval path runs under
 ``torch.no_grad``), BatchNorm uses the batch's statistics and updates the
@@ -35,7 +42,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.warp import plane_sweep_warp, ref_pixel_to_world
+from ..ops.warp import (plane_sweep_variance, plane_sweep_warp,
+                        ref_pixel_to_world)
 from .cost_reg import CostRegNet, VolumeGate
 from .edge_filter import filter_edges
 from .feature_net import FeatureNet
@@ -181,6 +189,15 @@ class CvaMVSNet(nn.Module):
         # Views are accumulated one at a time: a per-view (B, D, H, W, C)
         # volume is never stacked (118 MB each at stage 1, 640x480).
         acc = None
+        if gate is None and not train:
+            # The variance's sums, one sample kernel a view in place: no
+            # view's warped volume or its square is held.
+            for v in range(1, V):
+                acc = plane_sweep_variance(
+                    features[:, v], depth_in, acc, src_K=K,
+                    src_cam_to_world=cam_to_world[:, v], ref_p2w=ref_p2w)
+            volume = self._finalize_volume(acc, ref_volume, V, gated=False)
+            return self._depth_head(volume, depth_in, cost_reg, train)
         for v in range(1, V):
             warped, _ = plane_sweep_warp(
                 features[:, v], depth_in, src_K=K,

@@ -45,6 +45,7 @@ SIGNATURES = {
     "tandem_warp_sample": [ctypes.c_char_p, _c_ptr],
     "tandem_bilinear_sample": [ctypes.c_char_p, _c_ptr],
     "tandem_warp_sample_grad": [ctypes.c_char_p, _c_ptr],
+    "tandem_warp_variance": [ctypes.c_char_p, _c_ptr],
     # ... and an int it sets to the number of kernels it launched
     "tandem_edge_filter": [ctypes.c_char_p, ctypes.POINTER(_c_int), _c_ptr],
     # T, aff, B, then the level (ops/track_reduce.level_args)

@@ -25,6 +25,15 @@ dtype. The dispatcher picks the implementation by the tensors' device when
 the op runs, so ``torch.export`` keeps each call as one node of the graph
 and an exported program launches the kernels on the card.
 
+Variance: ``warp_variance`` is the variance cost volume's step for one
+source view (the cascade without view aggregation): the plane sweep's
+samples x of the view added to the running sums of x and x * x in place,
+or written by the first view; on the card one launch of the same source
+(``tandem::warp_variance``, whose CPU implementation is
+``warp_variance_plain``, the eager accumulation of ``warp_sample_plain``'s
+volume and its square). The kernel rounds as the plain version does, so
+the two are equal bit for bit. It is an inference step: no gradient.
+
 Gradient: ``warp_sample`` is differentiable with respect to the image,
 through the op's registered autograd formula on either device: the
 backward is ``warp_sample_grad`` (on the card one launch of the
@@ -226,6 +235,9 @@ def _plan(B: int, D: int, H: int, W: int, C: int, elem: int, misalign: int,
 _SWEEP_ARGS = struct.Struct("<4Q2q7if")
 _SAMPLE_ARGS = struct.Struct("<5Q2q6i")
 _GRAD_ARGS = struct.Struct("<4Q2q6ifi")
+# VarianceArgs: SweepArgs (its out the running sum), then the sum of
+# squares, first and a pad: 96 bytes.
+_VARIANCE_ARGS = struct.Struct(_SWEEP_ARGS.format + "Qii")
 
 
 def _check(name: str, img, floats, keep=None):
@@ -417,6 +429,96 @@ def _grad_call(grad_out, ref_to_src, depth, min_depth_thres: float,
     return acc
 
 
+def warp_variance_plain(img, ref_to_src, depth, vol_sum, vol_sq_sum,
+                        first: bool, min_depth_thres: float = 0.001):
+    """The variance step in torch ops: ``warp_sample_plain``'s volume
+    ``warped`` and ``warped ** 2`` written to the sums (``first``) or added
+    to them, in place, as the eager cascade accumulates them."""
+    warped = warp_sample_plain(img, ref_to_src, depth, min_depth_thres)
+    if first:
+        vol_sum.copy_(warped)
+        vol_sq_sum.copy_(warped ** 2)
+    else:
+        vol_sum.add_(warped)
+        vol_sq_sum.add_(warped ** 2)
+
+
+def warp_variance(img, ref_to_src, depth, sums=None,
+                  min_depth_thres: float = 0.001):
+    """One source view's step of the variance cost volume: its plane-sweep
+    samples x (``warp_sample``'s) added to the running sums of x and x * x.
+
+    :param img, ref_to_src, depth, min_depth_thres: as ``warp_sample``'s
+    :param sums: the running (sum, sum of squares), each (B, D, H, W, C)
+        of img's dtype, contiguous, updated in place; None for the first
+        view, whose x and x * x are written to new tensors
+    :return: the (sum, sum of squares)
+    """
+    first = sums is None
+    if first:
+        B, H, W, C = img.shape
+        shape = (B, depth.shape[1], H, W, C)
+        sums = (img.new_empty(shape), img.new_empty(shape))
+    torch.ops.tandem.warp_variance(img, ref_to_src, depth, sums[0], sums[1],
+                                   first, float(min_depth_thres))
+    return sums
+
+
+def _check_variance(img, ref_to_src, depth, vol_sum, vol_sq_sum):
+    _check_sweep(img, ref_to_src, depth)
+    B, H, W, C = img.shape
+    shape = (B, depth.shape[1], H, W, C)
+    for t in (vol_sum, vol_sq_sum):
+        if t.shape != shape or t.dtype != img.dtype \
+                or t.device != img.device or not t.is_contiguous():
+            raise ValueError(f"warp_variance: want contiguous {img.dtype} "
+                             f"sums of shape {shape} on {img.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+@torch.library.custom_op("tandem::warp_variance",
+                         mutates_args=("vol_sum", "vol_sq_sum"),
+                         device_types="cpu")
+def _warp_variance_op(img: torch.Tensor, ref_to_src: torch.Tensor,
+                      depth: torch.Tensor, vol_sum: torch.Tensor,
+                      vol_sq_sum: torch.Tensor, first: bool,
+                      min_depth_thres: float) -> None:
+    """The op on the CPU: the plain version."""
+    _check_variance(img, ref_to_src, depth, vol_sum, vol_sq_sum)
+    warp_variance_plain(img, ref_to_src, depth, vol_sum, vol_sq_sum, first,
+                        min_depth_thres)
+
+
+@_warp_variance_op.register_kernel("cuda")
+def _warp_variance_cuda(img, ref_to_src, depth, vol_sum, vol_sq_sum, first,
+                        min_depth_thres):
+    """The op on the card: one launch of the variance kernel, with the
+    forward's tiling (the vector width aligned to the sums too)."""
+    _check_variance(img, ref_to_src, depth, vol_sum, vol_sq_sum)
+    B, H, W, C = img.shape
+    D = depth.shape[1]
+    if B * D > MAX_PLANES or _too_large(H, W, C):
+        raise ValueError(f"warp_variance: {B} x {D} planes of {H} x {W} x "
+                         f"{C} exceed the kernel's grid or offsets")
+    if vol_sum.numel() == 0:
+        return
+    misalign = (img.data_ptr() | vol_sum.data_ptr()
+                | vol_sq_sum.data_ptr()) % 16
+    vec, rows, planes = _plan(B, D, H, W, C, img.element_size(), misalign,
+                              img.get_device())
+    launch("tandem_warp_variance", img.device, _VARIANCE_ARGS.pack(
+        img.data_ptr(), ref_to_src.data_ptr(), depth.data_ptr(),
+        vol_sum.data_ptr(), B, D, H, W, C, vec, rows, planes,
+        int(img.dtype == torch.bfloat16), min_depth_thres,
+        vol_sq_sum.data_ptr(), int(first), 0))
+    warp_variance.launches += 1
+
+
+@_warp_variance_op.register_fake
+def _(img, ref_to_src, depth, vol_sum, vol_sq_sum, first, min_depth_thres):
+    _check_variance(img, ref_to_src, depth, vol_sum, vol_sq_sum)
+
+
 def bilinear_sample(img, px, py, keep=None):
     """Sample ``img`` at given pixel positions.
 
@@ -452,4 +554,5 @@ def bilinear_sample(img, px, py, keep=None):
 
 warp_sample.launches = 0
 warp_sample_grad.launches = 0
+warp_variance.launches = 0
 bilinear_sample.launches = 0

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from .bilinear_sample import sweep_positions, warp_sample
+from .bilinear_sample import sweep_positions, warp_sample, warp_variance
 from .linalg import invert_pixel_projection
 
 
@@ -100,3 +100,22 @@ def plane_sweep_warp(src_features, ref_depth, *, src_K, src_cam_to_world,
                     | (y_norm.abs() > 1.0 + 1.0 / (H - 1)))
     mask_valid = ~(mask_negative | mask_outside)
     return warped, mask_valid.to(src_features.dtype)
+
+
+def plane_sweep_variance(src_features, ref_depth, sums=None, *, src_K,
+                         src_cam_to_world, ref_p2w,
+                         min_depth_thres: float = 0.001):
+    """One source view's step of the variance cost volume:
+    ``plane_sweep_warp``'s warped features x, never held whole, added to
+    the running sums of x and x * x (``ops/bilinear_sample.warp_variance``:
+    in place, or written when ``sums`` is None).
+
+    :param src_features: (B, H, W, C); ref_depth: (B, D, H, W)
+    :param ref_p2w: ``ref_pixel_to_world`` of the reference
+    :return: (sum, sum of squares), each (B, D, H, W, C) of
+        src_features' dtype
+    """
+    mat = ref_to_src_matrix(src_K, src_cam_to_world, ref_p2w=ref_p2w)
+    return warp_variance(src_features.contiguous(), mat,
+                         ref_depth.to(torch.float32).contiguous(), sums,
+                         min_depth_thres)
