@@ -59,6 +59,14 @@ Phases, each printing its numbers before the last line:
               view; the stage's four views in f32 by events and the
               profiler against the plain version, grid_sample with two
               in-place adds, and the bound of harness/variance.py's bytes;
+              the fusion kernels (csrc/tsdf_fuse.cu: integrate, the
+              splat's full walk, the hole fill) on a fused curved wall at
+              640x480 and 1152x864, bit for bit against their plain
+              versions, each by events and profiler device time beside
+              its bytes bound and the plain version's time (the splat
+              also beside the CPU route's axis-culled scatter_reduce
+              splat), and a keyframe's integrate + render on the card's
+              route against the CPU route run on the card;
   4. track kernels  K6 track_reduce, in the Huber and the Student-t
               weighting, against a float64 evaluation of its plain version
               at the tracker's level caps (640x480 level 0, the six
@@ -448,6 +456,15 @@ KERNELS = {
                       "tandem_tpu/models/cva_mvsnet.py:194 + :209-210 "
                       "(XLA: each view's warped volume and its square "
                       "added to two sums; no Pallas kernel)"),
+    "tsdf_integrate": ("tandem_tpu_torch/csrc/tsdf_fuse.cu",
+                       "none: tandem_tpu/mapping/tsdf.py integrate + "
+                       "integrate_culled (XLA), ported as torch ops"),
+    "tsdf_splat": ("tandem_tpu_torch/csrc/tsdf_fuse.cu",
+                   "none: tandem_tpu/mapping/tsdf.py render_depth_splat's "
+                   "splat and its culls (XLA), ported as torch ops"),
+    "tsdf_fill_holes": ("tandem_tpu_torch/csrc/tsdf_fuse.cu",
+                        "none: tandem_tpu/mapping/tsdf.py _fill_holes "
+                        "(XLA), ported as torch ops"),
     "row_gather": ("tandem_tpu_torch/csrc/row_gather.cu",
                    "experiments/pallas_gather_probe.py:35 "
                    "experiments/pallas_gather_probe.py:59 "
@@ -479,12 +496,15 @@ def wrappers() -> dict:
     from tandem_tpu_torch.ops.row_gather import row_gather
     from tandem_tpu_torch.ops.track_lm import lm_level
     from tandem_tpu_torch.ops.track_reduce import track_reduce
+    from tandem_tpu_torch.mapping.tsdf import _fill_holes, integrate, splat_zbuf
     return {"edge_kth": (edge_filter, edge_kth_value),
             "bilinear_index": (bilinear_index,),
             "corner_blend": (corner_blend,),
             "bilinear_sample": (warp_sample, bilinear_sample),
             "warp_sample_grad": (warp_sample_grad,),
             "warp_variance": (warp_variance,),
+            "tsdf_integrate": (integrate,), "tsdf_splat": (splat_zbuf,),
+            "tsdf_fill_holes": (_fill_holes,),
             "row_gather": (row_gather,), "track_reduce": (track_reduce,),
             "track_lm": (lm_level,)}
 
@@ -1399,6 +1419,156 @@ def _variance_kernel(dev, out: dict):
     out["warp_variance"] = res
 
 
+def _tsdf_scene(dev, H: int, W: int, f: float):
+    """A curved wall ~2 m away fused from two cameras by the plain
+    integrator, at a mapping cell's image size and focal length, in the
+    default TSDF (1 cm voxels); and the next scan (its band allocated) with
+    the pose it is fused and rendered at, 5 degrees and ~12 cm from the
+    first camera: (cfg, volume, depth, rgb, K, pose)."""
+    import torch
+
+    from tandem_tpu_torch.mapping import tsdf as tt
+
+    def pose(deg, t):
+        a = np.deg2rad(deg)
+        p = np.eye(4, dtype=np.float32)
+        p[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                     [-np.sin(a), 0, np.cos(a)]]
+        p[:3, 3] = t
+        return torch.from_numpy(p).to(dev)
+
+    K = torch.tensor([[f, 0, (W - 1) / 2], [0, f, (H - 1) / 2], [0, 0, 1]],
+                     device=dev)
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    wall = (2.013 + 0.3 * torch.sin(u * (7.0 / W)) * torch.cos(v * (5.0 / H))
+            ).contiguous()
+    rgb = torch.stack([100 + 150 * u / W, 60 + 190 * v / H,
+                       200 - 150 * u / W], -1).contiguous()
+    cfg = tt.TsdfConfig()
+    vol = tt.create_volume(cfg, dev)
+    for p in (pose(0.0, (0, 0, 0)), pose(10.0, (0.1, -0.05, 0.15))):
+        tt.allocate_blocks(cfg, vol, wall, K, p)
+        tt.integrate_plain(cfg, vol, wall, rgb, K, p)
+    depth = (wall + 0.01).contiguous()
+    p = pose(5.0, (0.05, 0.02, -0.1))
+    tt.allocate_blocks(cfg, vol, depth, K, p)
+    return cfg, vol, depth, rgb, K, p
+
+
+def _tsdf_kernels(dev, out: dict):
+    """The fusion kernels (csrc/tsdf_fuse.cu) against their plain versions
+    at both mapping cells' image sizes (abl04 640x480, fx 375; CasMVSNet
+    1152x864, fx 675) on a fused curved wall: integrate, the splat's full
+    walk, the fill from the z-buffer and render_depth_splat bit for bit.
+    Each timed by CUDA events and the profiler's device time beside the
+    bound of its bytes, the plain version, and for the splat
+    scatter_reduce's full walk and the CPU route's axis-culled splat (with
+    its cull and host read, host clock); the keyframe's fusion after the
+    allocation on the card's route (integrate + render) against the CPU
+    route run on the card (cull, read, integrate, cull, read, render). The
+    kernels' rows are the 640x480 numbers."""
+    import torch
+
+    from tandem_tpu_torch.mapping import tsdf as tt
+    from tandem_tpu_torch.utils.cuda_timing import cuda_ms
+    rows = {}
+    for (H, W, f) in ((480, 640, 375.0), (864, 1152, 675.0)):
+        shape = f"{W}x{H}"
+        cfg, vol, depth, rgb, K, p = _tsdf_scene(dev, H, W, f)
+        n = vol.n_allocated
+        got, want = tt.copy_volume(vol), tt.copy_volume(vol)
+        tt.integrate(cfg, got, depth, rgb, K, p)
+        tt.integrate_plain(cfg, want, depth, rgb, K, p)
+        for name in ("tsdf", "weight", "color"):
+            _exact(f"tsdf_integrate {shape} {name}", getattr(got, name),
+                   getattr(want, name))
+        changed = int(((got.weight != vol.weight)
+                       | (got.tsdf != vol.tsdf))[:n].sum())
+        zbuf = tt.splat_zbuf(cfg, got, K, p, H, W)
+        zplain = tt.splat_zbuf_plain(cfg, got, K, p, H, W)
+        _exact(f"tsdf_splat {shape}", zbuf, zplain)
+        finite = torch.where(torch.isfinite(zplain), zplain,
+                             torch.zeros_like(zplain)).reshape(H, W)
+        filled = tt.fill_holes_plain(finite, 2)
+        _exact(f"tsdf_fill_holes {shape}",
+               tt._fill_holes(zbuf.reshape(H, W), 2, from_zbuf=True), filled)
+        _exact(f"render_depth_splat {shape}",
+               tt.render_depth_splat(cfg, got, K, p, H, W), filled)
+        shown = int(tt._frustum_mask(cfg, K, p, H, W,
+                                     got.block_coords[:n]).sum())
+        b3 = cfg.block_size ** 3
+        work = {
+            "integrate": (lambda: tt.integrate(cfg, got, depth, rgb, K, p),
+                          lambda: tt.integrate_plain(cfg, want, depth, rgb,
+                                                     K, p),
+                          n * 12 + changed * 40 + H * W * 20),
+            "splat": (lambda: tt.splat_zbuf(cfg, got, K, p, H, W),
+                      lambda: tt.splat_zbuf_plain(cfg, got, K, p, H, W),
+                      n * 12 + shown * b3 * 8 + H * W * 8),
+            "fill_holes": (lambda: tt._fill_holes(zbuf.reshape(H, W), 2,
+                                                  from_zbuf=True),
+                           lambda: tt.fill_holes_plain(finite, 2),
+                           2 * H * W * 8)}
+        for name, (kernel, plain, nbytes) in work.items():
+            bound = _bound(nbytes, 0)
+            row = {"ms": cuda_ms(kernel), "device_ms": _device_ms(kernel),
+                   "plain_ms": cuda_ms(plain), **bound}
+            row["share"] = bound["bound_ms"] / row["device_ms"]
+            rows[(name, shape)] = row
+        slots3, counts3 = tt.surface_axis_slots(cfg, got, K, p, H, W)
+        counts = counts3.tolist()
+        axis_ms = cuda_ms(lambda: tt.splat_zbuf_plain(
+            cfg, got, K, p, H, W, axis_slots=slots3, axis_counts=counts))
+        rows[("splat", shape)]["library_ms"] = axis_ms
+
+        def card_route():
+            tt.integrate(cfg, got, depth, rgb, K, p)
+            return tt.render_depth_splat(cfg, got, K, p, H, W)
+
+        def cpu_route():
+            slots, n_vis = tt.visible_slots(cfg, want, K, p, H, W)
+            n_vis = int(n_vis)
+            if n_vis < 0.5 * n:
+                tt.integrate_culled(cfg, want, depth, rgb, K, p, slots, n_vis)
+            else:
+                tt.integrate_plain(cfg, want, depth, rgb, K, p)
+            s3, c3 = tt.surface_axis_slots(cfg, want, K, p, H, W)
+            zb = tt.splat_zbuf_plain(cfg, want, K, p, H, W, axis_slots=s3,
+                                     axis_counts=c3.tolist())
+            return tt.fill_holes_plain(torch.where(
+                torch.isfinite(zb), zb, torch.zeros_like(zb)).reshape(H, W),
+                2)
+
+        route_ms, _ = _median_ms(card_route)
+        old_ms, _ = _median_ms(cpu_route)
+        log(f"[kernels] tsdf {shape}: n_allocated {n}, {changed} voxels "
+            f"updated, {shown} blocks in the frustum, axis counts {counts}; "
+            f"integrate, splat, fill and render exact")
+        for name in work:
+            r = rows[(name, shape)]
+            log(f"[kernels] tsdf_{name} {shape}: kernel {r['ms']:.4f} ms "
+                f"events, {r['device_ms']:.4f} ms device; bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}): share "
+                f"{r['share']:.1%}; plain {r['plain_ms']:.4f} ms"
+                + (f"; the CPU route's axis-culled scatter_reduce splat "
+                   f"{r['library_ms']:.4f} ms" if name == "splat" else ""))
+        log(f"[kernels] tsdf {shape}: a keyframe's integrate + render, "
+            f"card route {route_ms:.3f} ms, CPU route on the card "
+            f"{old_ms:.3f} ms (host clock, synced, median of 5)")
+    for name in ("integrate", "splat", "fill_holes"):
+        r = rows[(name, "640x480")]
+        out[f"tsdf_{name}"] = {
+            "max_abs_err": 0.0, "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "at_1152x864": rows[(name, "1152x864")]}
+        if name == "splat":
+            out["tsdf_splat"].update(
+                library_ms=r["library_ms"],
+                library="the CPU route's axis-culled scatter_reduce splat")
+
+
 def phase_kernels(dev) -> dict:
     out = {}
     _edge_kth(dev, out)
@@ -1406,6 +1576,7 @@ def phase_kernels(dev) -> dict:
     _sweep_kernels(dev, out)
     _sweep_grad_kernel(dev, out)
     _variance_kernel(dev, out)
+    _tsdf_kernels(dev, out)
     _row_gather(dev, out)
     return out
 
@@ -1638,6 +1809,11 @@ def phase_slice(runner, pack, dev, profile: Path = None) -> dict:
         f"memory {peak_gb:.3f} GB, call ms {[round(x, 3) for x in call_ms]}")
     require_launched(f"{dn} slice", counts, ("bilinear_sample",),
                      N_KEYFRAMES)
+    # Each call after the first fuses a keyframe through the fusion kernels.
+    require_launched(f"{dn} slice", counts, ("tsdf_integrate", "tsdf_splat"),
+                     N_KEYFRAMES - 1)
+    require_launched(f"{dn} slice", counts, ("tsdf_fill_holes",),
+                     2 * (N_KEYFRAMES - 1))
     require_not_launched(f"{dn} slice", counts,
                          ("bilinear_index", "corner_blend"))
 

@@ -23,6 +23,13 @@ block coordinates plus a flat pool of 8^3-voxel blocks:
   the surface-culled ``surface_axis_slots``; the culled paths are exact
   equivalents of the full walk.
 
+On the card, ``integrate``, ``splat_zbuf``'s full walk and ``_fill_holes``
+are one launch each of ``csrc/tsdf_fuse.cu`` (each wrapper's ``.launches``
+counts them), which culls inside the kernel and needs no slot list or host
+read; for CPU tensors they run their plain versions (``integrate_plain``,
+``splat_zbuf_plain``, ``fill_holes_plain``), which the kernels equal bit
+for bit. The culled walks stay plain on both devices.
+
 Everything is float32; the JAX package's f16 split-precision packs are TPU
 gather tricks. Updates happen IN PLACE: ``allocate_blocks``, ``integrate``
 and ``grow_volume`` mutate the volume's tensors and return the volume (this
@@ -33,6 +40,7 @@ the visible blocks' rows and scatters them back by slot.
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Tuple
 
 import numpy as np
@@ -43,6 +51,11 @@ from ..utils.consts import const, reciprocal32
 CHUNK = 8192  # blocks per integrate/render pass (bounds the temporaries)
 RAYCAST_FILL_ROUNDS = 4  # 3x3 min fills of the raycast's seed z-buffer
 RAYCAST_STEPS = 5        # the raycast's sphere-tracing steps a ray
+# The kernels' packed arguments, csrc/tsdf_fuse.cu's IntegrateArgs,
+# SplatArgs and FillArgs (keep the layouts in step).
+_INTEGRATE_ARGS = struct.Struct("<10Qq3i5f2i")
+_SPLAT_ARGS = struct.Struct("<8Qq4i3fi")
+_FILL_ARGS = struct.Struct("<2Q4i")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,14 +209,87 @@ def _voxel_world(cfg: TsdfConfig, coords, dev):
             (base[:, 2:3] + lz) * vs)
 
 
+def _check(name: str, t, dtype, shape) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or not t.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous {dtype} "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
+                         f"{'' if t.is_contiguous() else ' (strided)'}")
+
+
+def _check_volume(name: str, cfg: TsdfConfig, vol: TsdfVolume) -> None:
+    """The volume's layout, on one device: what the kernels index."""
+    p, b3 = vol.tsdf.shape[0], cfg.block_size ** 3
+    for f, dtype, shape in (("page_table", torch.int32, (cfg.table_dim ** 3,)),
+                            ("block_coords", torch.int32, (p, 3)),
+                            ("tsdf", torch.float32, (p, b3)),
+                            ("weight", torch.float32, (p, b3)),
+                            ("color", torch.float32, (p, b3, 3))):
+        t = getattr(vol, f)
+        _check(f"{name}: {f}", t, dtype, shape)
+        if t.device != vol.tsdf.device:
+            raise ValueError(f"{name}: {f} on {t.device}, the volume on "
+                             f"{vol.tsdf.device}")
+    if not 0 <= vol.n_allocated <= p:
+        raise ValueError(f"{name}: n_allocated {vol.n_allocated} outside a "
+                         f"pool of {p}")
+
+
+def _check_camera(name: str, vol: TsdfVolume, K, cam_to_world) -> None:
+    _check(f"{name}: K", K, torch.float32, (3, 3))
+    _check(f"{name}: cam_to_world", cam_to_world, torch.float32, (4, 4))
+    for t in (K, cam_to_world):
+        if t.device != vol.tsdf.device:
+            raise ValueError(f"{name}: inputs on {t.device}, the volume on "
+                             f"{vol.tsdf.device}")
+
+
+def _on_card(name: str, t) -> bool:
+    """True for a CUDA tensor (the kernel's), False for a CPU one (the
+    plain version's); any other device raises."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
 def integrate(cfg: TsdfConfig, vol: TsdfVolume, depth, color, K,
               cam_to_world) -> TsdfVolume:
-    """Fuse one (depth, color) scan into every allocated block (in place),
-    CHUNK blocks per pass.
+    """Fuse one (depth, color) scan into every allocated block (in place):
+    ``integrate_plain`` for CPU tensors, one launch of
+    ``tandem_tsdf_integrate`` for CUDA tensors, which updates exactly the
+    voxels the plain version updates.
 
     :param depth: (H, W); color: (H, W, 3) float [0, 255] RGB; K: (3, 3);
-        cam_to_world: (4, 4)
+        cam_to_world: (4, 4); all float32, contiguous, on the volume's
+        device
     """
+    _check_volume("integrate", cfg, vol)
+    H, W = depth.shape if depth.dim() == 2 else (-1, -1)
+    _check("integrate: depth", depth, torch.float32, (H, W))
+    _check("integrate: color", color, torch.float32, (H, W, 3))
+    _check_camera("integrate", vol, K, cam_to_world)
+    if not _on_card("integrate", vol.tsdf):
+        return integrate_plain(cfg, vol, depth, color, K, cam_to_world)
+    if depth.device != vol.tsdf.device or color.device != vol.tsdf.device:
+        raise ValueError("integrate: the scan and the volume on two devices")
+    if not vol.n_allocated:
+        return vol
+    from ..ops._build import launch
+    scan = _Scan(depth, color, K, cam_to_world)
+    launch("tandem_tsdf_integrate", depth.device, _INTEGRATE_ARGS.pack(
+        vol.block_coords.data_ptr(), vol.tsdf.data_ptr(),
+        vol.weight.data_ptr(), vol.color.data_ptr(), depth.data_ptr(),
+        color.data_ptr(), scan.ray_norm.data_ptr(), K.data_ptr(),
+        cam_to_world.data_ptr(), scan.t.data_ptr(), vol.n_allocated, H, W,
+        cfg.block_size, cfg.voxel_size, cfg.truncation, cfg.max_weight,
+        cfg.min_depth, cfg.max_depth, 0, 0))
+    integrate.launches += 1
+    return vol
+
+
+def integrate_plain(cfg: TsdfConfig, vol: TsdfVolume, depth, color, K,
+                    cam_to_world) -> TsdfVolume:
+    """``integrate`` in torch ops, CHUNK blocks per pass."""
     scan = _Scan(depth, color, K, cam_to_world)
     for start in range(0, vol.n_allocated, CHUNK):
         _integrate_rows(cfg, vol, scan,
@@ -508,18 +594,18 @@ def render_depth_splat(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
     filling holes (``fill_rounds`` rounds of ``_fill_holes``). Returns
     (H, W) depth, 0 where empty.
 
-    By default every allocated block is walked. ``slots``/``n_visible``
-    (``visible_slots`` at this camera) walk only the frustum-culled blocks;
-    ``axis_slots``/``axis_counts`` (``surface_axis_slots``, host counts)
-    splat each axis over only the blocks that can cross along it (the
-    backend's path). All three give the same depth exactly.
+    By default every allocated block is walked (on the card: one launch,
+    which skips the blocks outside the frustum itself). ``slots``/
+    ``n_visible`` (``visible_slots`` at this camera) walk only the
+    frustum-culled blocks; ``axis_slots``/``axis_counts``
+    (``surface_axis_slots``, host counts) splat each axis over only the
+    blocks that can cross along it (the backend's CPU route). All three
+    give the same depth exactly.
     """
     zbuf = splat_zbuf(cfg, vol, K, cam_to_world, H, W, slots=slots,
                       n_visible=n_visible, axis_slots=axis_slots,
                       axis_counts=axis_counts)
-    depth = zbuf.reshape(H, W)
-    depth = torch.where(torch.isfinite(depth), depth, torch.zeros_like(depth))
-    return _fill_holes(depth, fill_rounds)
+    return _fill_holes(zbuf.reshape(H, W), fill_rounds, from_zbuf=True)
 
 
 def splat_zbuf(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world, H: int,
@@ -527,7 +613,39 @@ def splat_zbuf(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world, H: int,
                axis_counts=None):
     """The splat render's raw z-buffer before any fill (the JAX package's
     ``_splat_init`` + chunks): (H * W,) nearest crossing depth per pixel,
-    inf where none. The block walks are ``render_depth_splat``'s."""
+    inf where none. The block walks are ``render_depth_splat``'s; the full
+    walk is one launch of ``tandem_tsdf_splat`` for CUDA tensors and
+    ``splat_zbuf_plain`` for CPU ones, the culled walks always the
+    latter."""
+    if slots is not None or axis_slots is not None:
+        return splat_zbuf_plain(cfg, vol, K, cam_to_world, H, W, slots,
+                                n_visible, axis_slots, axis_counts)
+    _check_volume("splat_zbuf", cfg, vol)
+    _check_camera("splat_zbuf", vol, K, cam_to_world)
+    if H < 1 or W < 1:
+        raise ValueError(f"splat_zbuf: an image of {H} x {W}")
+    if not _on_card("splat_zbuf", vol.tsdf):
+        return splat_zbuf_plain(cfg, vol, K, cam_to_world, H, W)
+    zbuf = torch.full((H * W,), float("inf"), device=vol.tsdf.device)
+    if not vol.n_allocated:
+        return zbuf
+    from ..ops._build import launch
+    _, t = _world_to_cam(cam_to_world)
+    launch("tandem_tsdf_splat", zbuf.device, _SPLAT_ARGS.pack(
+        vol.block_coords.data_ptr(), vol.tsdf.data_ptr(),
+        vol.weight.data_ptr(), vol.page_table.data_ptr(), zbuf.data_ptr(),
+        K.data_ptr(), cam_to_world.data_ptr(), t.data_ptr(),
+        vol.n_allocated, H, W, cfg.block_size, cfg.table_dim,
+        cfg.voxel_size, cfg.min_depth, cfg.block_extent, 0))
+    splat_zbuf.launches += 1
+    return zbuf
+
+
+def splat_zbuf_plain(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world,
+                     H: int, W: int, slots=None, n_visible: int = None,
+                     axis_slots=None, axis_counts=None):
+    """``splat_zbuf`` in torch ops, CHUNK blocks per pass, each pass's
+    candidates kept by ``scatter_reduce(amin)``."""
     R, t = _world_to_cam(cam_to_world)
     # One spare slot takes every column without a valid crossing.
     zbuf = torch.full((H * W + 1,), float("inf"), device=vol.tsdf.device)
@@ -551,9 +669,40 @@ def splat_zbuf(cfg: TsdfConfig, vol: TsdfVolume, K, cam_to_world, H: int,
     return zbuf[:H * W]
 
 
-def _fill_holes(depth, rounds: int = 2):
+def _fill_holes(depth, rounds: int = 2, from_zbuf: bool = False):
     """Fill empty pixels (<= 0) from the 3x3 neighbourhood minimum,
-    ``rounds`` times (close voxel shells project sparsely)."""
+    ``rounds`` times (close voxel shells project sparsely):
+    ``fill_holes_plain`` for a CPU tensor, one launch of
+    ``tandem_tsdf_fill_holes`` a round for a CUDA tensor.
+
+    :param depth: (H, W) float32, contiguous
+    :param from_zbuf: ``depth`` is the splat's raw z-buffer, read as 0
+        where it is not finite (folded into the first round on the card)
+    """
+    _check("_fill_holes: depth", depth, torch.float32,
+           depth.shape if depth.dim() == 2 else (-1, -1))
+    if not _on_card("_fill_holes", depth):
+        if from_zbuf:
+            depth = torch.where(torch.isfinite(depth), depth,
+                                torch.zeros_like(depth))
+        return fill_holes_plain(depth, rounds)
+    if rounds < 1:
+        return (torch.where(torch.isfinite(depth), depth,
+                            torch.zeros_like(depth)) if from_zbuf else depth)
+    from ..ops._build import launch
+    H, W = depth.shape
+    for r in range(rounds):
+        out = torch.empty_like(depth)
+        launch("tandem_tsdf_fill_holes", depth.device, _FILL_ARGS.pack(
+            depth.data_ptr(), out.data_ptr(), H, W, int(from_zbuf and r == 0),
+            0))
+        _fill_holes.launches += 1
+        depth = out
+    return depth
+
+
+def fill_holes_plain(depth, rounds: int = 2):
+    """``_fill_holes`` in torch ops."""
     H, W = depth.shape
     inf = float("inf")
     for _ in range(rounds):
@@ -567,6 +716,11 @@ def _fill_holes(depth, rounds: int = 2):
                             torch.where(torch.isfinite(m), m,
                                         torch.zeros_like(m)))
     return depth
+
+
+integrate.launches = 0
+splat_zbuf.launches = 0
+_fill_holes.launches = 0
 
 
 def _get_voxels(cfg: TsdfConfig, vol: TsdfVolume, pts_w):

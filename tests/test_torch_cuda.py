@@ -863,6 +863,260 @@ def test_culled_tsdf_equals_full_on_card(dev):
             cfg, vol, K, p, Hh, Ww, axis_slots=s3, axis_counts=c3.tolist()))
 
 
+# --- The fusion kernels (csrc/tsdf_fuse.cu) ----------------------------------
+
+# The mapping cells' images: (H, W, fx = fy).
+TSDF_SHAPES = {"640x480": (480, 640, 375.0), "1152x864": (864, 1152, 675.0)}
+
+
+def _turn_pose(deg: float, t=(0.0, 0.0, 0.0)) -> np.ndarray:
+    """A camera turned ``deg`` about y, tilted 7 degrees about x (so that
+    every entry of a turned camera's rotation is nonzero), at ``t``."""
+    a, b = np.deg2rad(deg), np.deg2rad(7.0)
+    ry = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                   [-np.sin(a), 0, np.cos(a)]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)],
+                   [0, np.sin(b), np.cos(b)]])
+    p = np.eye(4, dtype=np.float32)
+    p[:3, :3] = ry @ rx
+    p[:3, 3] = t
+    return p
+
+
+def _tsdf_case(dev, shape: str, scene: str):
+    """A volume fused by the plain integrator from two cameras onto a curved
+    wall ~2 m away, at a mapping cell's image size, and the next scan:
+    (cfg, volume with the scan's band allocated, (depth, rgb, K, pose),
+    render pose). Scenes: ``wall``; ``turn80``, the camera turned 80
+    degrees onto a small patch, so most blocks leave the frustum; ``grown``,
+    a pool of 1,024 blocks grown until the band fits; ``edge``, an arena of
+    48 blocks an axis (+-1.92 m), so the wall's far blocks lie on its edge
+    and their +z neighbours outside it."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    H, W, f = TSDF_SHAPES[shape]
+    K = torch.tensor([[f, 0, (W - 1) / 2], [0, f, (H - 1) / 2], [0, 0, 1]],
+                     device=dev)
+    u = torch.arange(W, dtype=torch.float32, device=dev)[None].expand(H, W)
+    v = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
+    wall = (2.013 + 0.3 * torch.sin(u * (7.0 / W)) * torch.cos(v * (5.0 / H))
+            ).contiguous()
+    rgb = torch.stack([100 + 150 * u / W, 60 + 190 * v / H,
+                       200 - 150 * u / W], -1).contiguous()
+    cfg = tt.TsdfConfig(**{"grown": {"pool_size": 1024},
+                           "edge": {"table_dim": 48}}.get(scene, {}))
+    vol = tt.create_volume(cfg, dev)
+
+    def allocate(depth, pose):
+        nonlocal cfg, vol
+        tt.allocate_blocks(cfg, vol, depth, K, pose)
+        while vol.n_dropped:
+            cfg, vol = tt.grow_volume(cfg, vol)
+            vol.n_dropped = 0
+            tt.allocate_blocks(cfg, vol, depth, K, pose)
+
+    for p in (_turn_pose(0.0), _turn_pose(10.0, (0.1, -0.05, 0.15))):
+        pose = torch.from_numpy(p).to(dev)
+        allocate(wall, pose)
+        tt.integrate_plain(cfg, vol, wall, rgb, K, pose)
+    if scene == "turn80":
+        depth = torch.zeros_like(wall)
+        depth[H // 3:H // 2, W // 3:W // 2] = 1.5
+        pose = torch.from_numpy(_turn_pose(80.0)).to(dev)
+    else:
+        depth = (wall + 0.01).contiguous()
+        pose = torch.from_numpy(_turn_pose(5.0, (0.05, 0.02, -0.1))).to(dev)
+    allocate(depth, pose)
+    if scene == "grown":
+        assert cfg.pool_size > 1024
+    return cfg, vol, (depth, rgb, K, pose), pose
+
+
+@pytest.mark.parametrize("scene", ["wall", "turn80", "grown", "edge"])
+@pytest.mark.parametrize("shape", list(TSDF_SHAPES))
+def test_tsdf_kernels_equal_plain(dev, shape, scene):
+    """integrate, splat_zbuf's full walk, _fill_holes (from the z-buffer and
+    from a depth map) and render_depth_splat on the card, one launch each
+    (two for the fill), equal their plain versions bit for bit."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    cfg, vol, (depth, rgb, K, pose), render = _tsdf_case(dev, shape, scene)
+    H, W = depth.shape
+    if scene == "turn80":
+        _, n_vis = tt.visible_slots(cfg, vol, K, pose, H, W)
+        assert int(n_vis) < 0.2 * vol.n_allocated
+    got, want = tt.copy_volume(vol), tt.copy_volume(vol)
+    counts = [tt.integrate.launches, tt.splat_zbuf.launches,
+              tt._fill_holes.launches]
+    tt.integrate(cfg, got, depth, rgb, K, pose)
+    tt.integrate_plain(cfg, want, depth, rgb, K, pose)
+    for f in ("tsdf", "weight", "color"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert not torch.equal(got.weight, vol.weight)
+    zbuf = tt.splat_zbuf(cfg, got, K, render, H, W)
+    plain = tt.splat_zbuf_plain(cfg, got, K, render, H, W)
+    assert torch.equal(zbuf, plain)
+    assert int(torch.isfinite(plain).sum()) > (500 if scene == "turn80"
+                                               else 0.04 * H * W)
+    finite = torch.where(torch.isfinite(plain), plain,
+                         torch.zeros_like(plain)).reshape(H, W)
+    filled = tt.fill_holes_plain(finite, 2)
+    assert torch.equal(tt._fill_holes(zbuf.reshape(H, W), 2, from_zbuf=True),
+                       filled)
+    assert torch.equal(tt._fill_holes(finite, 2), filled)
+    assert torch.equal(tt.render_depth_splat(cfg, got, K, render, H, W),
+                       filled)
+    assert [tt.integrate.launches, tt.splat_zbuf.launches,
+            tt._fill_holes.launches] == [counts[0] + 1, counts[1] + 2,
+                                         counts[2] + 6]
+
+
+def test_tsdf_fill_kernel_sparse_and_rounds(dev):
+    """The fill kernel on a sparse map with holes of every size, 1-4
+    rounds, and on a z-buffer with negative, zero and inf pixels."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    gen = torch.Generator(device=dev).manual_seed(3)
+    keep = torch.rand((97, 131), generator=gen, device=dev) < 0.1
+    depth = torch.where(keep, 0.5 + 3 * torch.rand(
+        (97, 131), generator=gen, device=dev), torch.zeros((), device=dev))
+    for rounds in (1, 2, 3, 4):
+        assert torch.equal(tt._fill_holes(depth, rounds),
+                           tt.fill_holes_plain(depth, rounds))
+    zbuf = depth.clone()
+    zbuf[~keep] = float("inf")
+    zbuf[:3, :5] = -1.0
+    assert torch.equal(
+        tt._fill_holes(zbuf, 2, from_zbuf=True),
+        tt.fill_holes_plain(torch.where(torch.isfinite(zbuf), zbuf,
+                                        torch.zeros_like(zbuf)), 2))
+
+
+class _CardDepthRunner:
+    """A stand-in MVSNet runner that hands back prescribed depth maps on
+    its device (the backend's map path without a network)."""
+    view_num = 7
+
+    def __init__(self, depths, device):
+        self.depths = list(depths)
+        self.device = device
+        self._out = None
+
+    def call_async(self, bgrs, cam_to_worlds, K, depth_min, depth_max,
+                   discard_percentage=10.0):
+        self._out = self.depths.pop(0)
+
+    def get_result(self, device=False):
+        return {"depth": torch.from_numpy(self._out).to(self.device),
+                "confidence": None}
+
+    def device_ready(self):
+        return True
+
+
+def _backend_run(device, timer=None, cpu_route: bool = False):
+    """Five calls (four fused keyframes) of a backend at 120x160: a wall, the
+    camera turned 90 degrees onto a patch (most of the map leaves the
+    frustum), then back, moved. The rotations are exact (0 and +-1), so the
+    CPU's and the card's matrix products agree bit for bit. ``cpu_route``
+    sends a card backend down the CPU's route. Returns the backend and the
+    rendered depth of each fused call."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    from tandem_tpu_torch.pipeline.backend import TandemBackend
+    H, W = 120, 160
+    u, v = np.meshgrid(np.arange(W), np.arange(H))
+    wall = (1.537 + 0.2 * np.sin(u * 0.05) * np.cos(v * 0.07)).astype(
+        np.float32)
+    patch = np.zeros((H, W), np.float32)
+    patch[40:70, 60:100] = 1.2
+    turn = np.eye(4, dtype=np.float32)
+    turn[:3, :3] = [[0, 0, 1], [0, 1, 0], [-1, 0, 0]]
+    moved = np.eye(4, dtype=np.float32)
+    moved[:3, 3] = (0.05, -0.03, 0.02)
+    kfs = [(wall, np.eye(4, dtype=np.float32)), (patch, turn), (wall, moved),
+           (wall, np.eye(4, dtype=np.float32))]
+    K = np.array([[140.0, 0, (W - 1) / 2], [0, 140.0, (H - 1) / 2],
+                  [0, 0, 1]], np.float32)
+    img = np.dstack([u % 256, v % 256, (u + v) % 256]).astype(np.uint8)
+    backend = TandemBackend(
+        _CardDepthRunner([d for d, _ in kfs] + [wall], device),
+        tt.TsdfConfig(voxel_size=0.02, table_dim=64, pool_size=4096,
+                      truncation=0.08, max_depth=8.0), K, H, W,
+        mesh_extraction_freq=0, timer=timer)
+    backend.on_card = backend.on_card and not cpu_route
+    renders = []
+    for i, (_, p) in enumerate(kfs + [kfs[0]]):
+        backend.call([img] * 7, [p] * 7, 0.5, 6.0, kfs[min(i, 3)][1])
+        if i:
+            renders.append(backend.get_tracking_depth_map()["depth"])
+    return backend, renders
+
+
+def test_card_backend_equals_cpu_route(dev, monkeypatch):
+    """Four keyframes through the card's route (the kernels) against the
+    CPU route (culled integrate, axis-culled splat, plain fill) run on the
+    card in plain torch: the volumes and the renders equal bit for bit. The
+    card's route reads the host once a call, samples ``fusion_kernels`` 1 a
+    keyframe and launches integrate and the splat once and the fill twice a
+    keyframe; ``FusedScans`` records each scan. Against the CPU backend:
+    the same blocks and weights, the sdf and the renders within a few
+    float32 ulps (the CPU's torch ops round the scan's ray norms
+    differently from the card's by an ulp on ~0.6% of the pixels)."""
+    from collections import deque
+
+    from benchmark.traffic.common import FusedScans, Patches
+    from tandem_tpu_torch.mapping import tsdf as tt
+    from tandem_tpu_torch.pipeline import backend as backend_module
+    from tandem_tpu_torch.utils import timer as tm
+    log = deque(maxlen=tm.LOG_ENTRIES)
+    monkeypatch.setattr(tm, "LOG", log)
+    fns = (tt.integrate, tt.splat_zbuf, tt._fill_holes)
+    before = [fn.launches for fn in fns]
+    patches = Patches()
+    scans = FusedScans(patches)
+    try:
+        card, card_renders = _backend_run(dev, tm.Timer())
+    finally:
+        patches.undo()
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [4, 4, 8]
+    assert len(scans.scans) == 4
+    samples = [e for e in log if isinstance(e, tm.Sample)]
+    assert [s.value for s in samples if s.name == "fusion_kernels"] == [1] * 4
+    assert sum(s.value for s in samples
+               if s.name == "fusion_host_reads") == 4
+    names = {s.name for s in log if isinstance(s, tm.Span)}
+    assert "fusion_cull" not in names and "fusion_read" in names
+    assert card.last_fuse["n_visible"] is None
+
+    def plain_fill(depth, rounds=2, from_zbuf=False):
+        if from_zbuf:
+            depth = torch.where(torch.isfinite(depth), depth,
+                                torch.zeros_like(depth))
+        return tt.fill_holes_plain(depth, rounds)
+
+    with monkeypatch.context() as m:
+        m.setattr(backend_module, "integrate", tt.integrate_plain)
+        m.setattr(tt, "_fill_holes", plain_fill)
+        launches = [fn.launches for fn in fns]
+        torch_route, torch_renders = _backend_run(dev, cpu_route=True)
+        assert [fn.launches for fn in fns] == launches
+    assert torch_route.last_fuse["n_visible"] is not None
+    for f in ("page_table", "block_coords", "tsdf", "weight", "color"):
+        assert torch.equal(getattr(card.volume, f),
+                           getattr(torch_route.volume, f)), f
+    for a, b in zip(card_renders, torch_renders):
+        assert torch.equal(a, b)
+    assert (card_renders[-1] > 0).float().mean() > 0.5
+
+    cpu, cpu_renders = _backend_run(torch.device("cpu"))
+    for f in ("page_table", "block_coords", "weight"):
+        assert torch.equal(getattr(card.volume, f).cpu(),
+                           getattr(cpu.volume, f)), f
+    for f in ("tsdf", "color"):
+        gap = (getattr(card.volume, f).cpu() - getattr(cpu.volume, f)).abs()
+        assert float(gap.max()) <= (1e-5 if f == "tsdf" else 1e-3), f
+    for a, b in zip(card_renders, cpu_renders):
+        assert torch.equal(a.cpu() > 0, b > 0)
+        assert float((a.cpu() - b).abs().max()) <= 1e-5
+
+
 
 def _textured_plane(c2w, Hh=120, Ww=160, f=150.0):
     """Intensity and z-depth of a textured plane z_w = 2 seen from c2w."""
