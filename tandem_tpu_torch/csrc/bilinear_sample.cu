@@ -466,7 +466,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 //   lies outside, adds nothing, reads no grad_out and leaves the run as it
 //   was. On the golden stage-1 sweep a pixel's 48 planes make ~12 runs
 //   (the sample crosses cells along its epipolar line): 4.5x fewer float32
-//   additions into memory (experiments/grad_contention.py);
+//   additions into memory (counted on the H100, CHANGES.md);
 // - a lane sums VEC = 4 channels (one 16-byte float4), in f32 and bf16
 //   alike (a bf16 lane reads 8 bytes of grad_out), and flushes a corner
 //   with one float4 atomicAdd (sm_90's vector reduction on global memory):

@@ -184,8 +184,8 @@ def sweep_tiling(B: int, D: int, H: int, W: int, lanes: int,
 
     Several planes a warp hide the depth load's DRAM latency where a
     plane is a few rounds (lanes < 8), but cost blocks: they stay while
-    the grid keeps 4 blocks an SM. Chosen from the settings timed by
-    ``experiments/sample_tiles.py`` on the H100 at the abl04 stages."""
+    the grid keeps 4 blocks an SM. Chosen from the settings timed on the
+    H100 at the abl04 stages (CHANGES.md)."""
     rows = SWEEP_ROWS_PER_BLOCK
     if lanes < 8:
         tiles = B * -(-W // (256 // rows)) * -(-H // rows)
@@ -415,7 +415,7 @@ def _grad_call(grad_out, ref_to_src, depth, min_depth_thres: float,
                vec: int, planes: int):
     """The gradient kernel's launch into zeroed float32 sums, with ``vec``
     channels a lane and ``planes`` planes a thread (the inputs checked by
-    warp_sample_grad; experiments time other ``planes`` through it)."""
+    warp_sample_grad; tests launch other ``planes`` through it)."""
     B, D, H, W, C = grad_out.shape
     acc = torch.zeros((B, H, W, C), dtype=torch.float32,
                       device=grad_out.device)

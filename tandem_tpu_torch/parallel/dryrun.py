@@ -2,7 +2,7 @@
 
 The counterparts of ``__graft_entry__.py:61-273`` (``dryrun_multichip``,
 ``_dryrun_inline``, ``multihost_train_losses``), and the rank launcher
-that the tests and ``chip_smoke.py`` share:
+that the tests use:
 
 - ``run_ranks`` spawns one process a rank over a ``file://`` rendezvous
   (no port, so concurrent runs cannot collide). Each rank writes its

@@ -392,7 +392,8 @@ def test_graphed_runner_equals_eager_at_the_dtu_size(dev, tmp_path):
     eager call, the call that captures the CUDA graph and a replay give
     the same four outputs bit for bit, as a fresh eager
     ``Stage3Forward`` does; 12 variance launches (3 stages x 4 source
-    views) and one edge filter a call, counted at each replay."""
+    views) and one edge filter a call, counted at each replay, and no
+    warp_sample launch."""
     from tandem_tpu_torch.ops.edge_kth import edge_filter
     unit = _unit(tmp_path, CONFIG["model"], V=5, width=1152, height=864,
                  device=dev)
@@ -400,6 +401,7 @@ def test_graphed_runner_equals_eager_at_the_dtu_size(dev, tmp_path):
     rec = _window(5, 1152, 864, dev)
     names = ("depth", "confidence", "depth_dense", "confidence_dense")
     outs, served = [], []
+    sampled = bs.warp_sample.launches
     for _ in range(3):
         launches, calls = bs.warp_variance.launches, edge_filter.calls
         runner.call_async(rec["bgrs"], rec["c2w"], rec["K"], rec["dmin"],
@@ -411,6 +413,7 @@ def test_graphed_runner_equals_eager_at_the_dtu_size(dev, tmp_path):
         assert bs.warp_variance.launches == launches + 12
         assert edge_filter.calls == calls + 1
     assert served == ["eager", "capture", "replay"]
+    assert bs.warp_sample.launches == sampled
     with torch.no_grad():
         eager = Stage3Forward(runner.model)(*runner._device_inputs(
             *runner.pack_inputs(rec["bgrs"], rec["c2w"], rec["K"]),

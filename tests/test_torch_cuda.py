@@ -3,10 +3,17 @@ mode. They skip without a card. Every kernel (the plane-sweep sample
 ``csrc/bilinear_sample.cu`` included) is held against its plain
 PyTorch version on the card: exactly (torch.equal), or for the tracker's
 sums (K6, track_lm) within a stated tolerance of a float64 evaluation.
+The port's paths are held end to end on the card too: the trained unit's
+golden pack and keyframes, tracking on the trajectory fixture, the SLAM
+loop, the exported units, the RGB-D path, training and the evaluation,
+each with the bar and the launches it must show (``torch_cases``). Timing
+is the benchmark's (``benchmark/run.py``), not these tests'.
 This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -22,8 +29,32 @@ from tandem_tpu_torch.ops.edge_kth import (KERNELS_PER_CALL, MAX_BATCH,
                                            edge_kth_plain, edge_kth_value)
 from tandem_tpu_torch.ops.bilinear_sample import pack_corners
 from tandem_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+from torch_cases import (ABL04_CONFIG, BF16_STEPS, BF16_TOL, CURVE_STEPS,
+                         DEMO_FRAMES, DP_RTOL, DP_SIZE, DP_STEPS, DP_TUPLES,
+                         EVAL_ROOT, EVAL_TOL, EVAL_UNIT, FIXTURE, GOLDEN_TOL,
+                         GT_TRACK_BOUND, LM_AFF_TOL, LM_POSE_PX,
+                         MVS_TRACK_BOUND, N_KEYFRAMES, REF_ABS_REL, REPO,
+                         RGBD_ATE_BOUND, RGBD_DVO_POSES, RGBD_DVO_POSES_SLACK,
+                         RUNTIME_FRAMES, RUNTIME_MIN_POSES,
+                         SHARD_BF16_REL, SHARD_CONF_TOL, SHARD_DEPTH_TOL,
+                         SHARD_FLIP_SHARE, SHARD_FLOOR_X, SLAM_ATE_BOUND,
+                         SLAM_MIN_FRAMES, SLAM_STAGE_SHAPES, STAGE_SHAPES,
+                         TRAIN_ROOT, UNIT, _dense_ref, _double,
+                         _golden_forward, _golden_sweep, _host_reads,
+                         _lm_level_steps, _lm_one_step, _png_filtered,
+                         _recorded_step, _require_step_launches, _rgbd_run,
+                         _runner_outputs, _runtime_frames, _slam_run,
+                         _track_case, _track_loop, _track_shapes, _train_cli,
+                         _warp_positions, edge_calls, golden_window,
+                         load_runner, read_counts, require_edge_filter,
+                         require_launched, require_not_launched, reset_counts,
+                         write_runtime_sequence)
 
 pytestmark = pytest.mark.cuda
+# cuBLAS reads its workspace size once, at its first use: set here, when
+# the tests are collected and before any of them runs, so that the
+# deterministic run of test_f32_golden_forward_is_deterministic is under it.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -93,7 +124,9 @@ def _filter_case(kind: str, shape):
 @pytest.mark.parametrize("with_conf", [True, False])
 @pytest.mark.parametrize("kind", ["random", "tied", "border", "all_equal",
                                   "heavy"])
-@pytest.mark.parametrize("shape", [(3, 61, 83), (1, 120, 160), (3, 37, 5)])
+@pytest.mark.parametrize("shape", [(3, 61, 83), (1, 120, 160), (3, 37, 5),
+                                   (3, 480, 640), (3, 240, 320),
+                                   (3, 192, 256)])
 def test_edge_filter_kernel_equals_plain(dev, kind, shape, with_conf):
     """The whole filter, kernel against plain: depth, confidence and mask
     equal, and the threshold equal to torch.kthvalue of the edge values."""
@@ -162,33 +195,171 @@ def test_runner_normalization_on_card(dev):
 
 
 def test_f32_golden_forward_is_deterministic(dev):
-    """The trained 640x480 unit's f32 forward, twice in one process: all
-    12 outputs equal bit for bit (the model pins cuDNN to deterministic
-    algorithms)."""
-    import json
-    from pathlib import Path
+    """The trained 640x480 unit's f32 forward, twice in one process and a
+    third time under torch.use_deterministic_algorithms (cuBLAS with its
+    fixed workspace): all 12 outputs equal bit for bit (the model pins
+    cuDNN to deterministic algorithms), and no op lacks a deterministic
+    form."""
+    runner, pack = load_runner(dev, torch.float32)
+    first, second = (_golden_forward(runner, pack, dev) for _ in range(2))
+    assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        strict = _golden_forward(runner, pack, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for again in (second, strict):
+        for a, b in zip(first, again):
+            for x, y in zip(a, b):
+                assert torch.equal(x, y)
 
-    from tandem_tpu_torch.models.convert import (flax_to_state_dict,
-                                                 load_variables)
-    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
-    unit = Path(__file__).resolve().parent.parent / "exported" / "tandem"
-    cfg = json.loads((unit / "model_config.json").read_text())
-    model = CvaMVSNet(**cfg)
-    model.load_state_dict(flax_to_state_dict(
-        load_variables(unit / "model_variables.pkl"),
-        view_aggregation=model.view_aggregation))
-    model = model.to(dev).eval()
-    pack = np.load(unit / "sample_inputs.npz")
-    args = (torch.from_numpy(pack["image"].astype(np.float32) / 255.0).to(dev),
-            [torch.from_numpy(pack[k]).to(dev) for k in ("K1", "K2", "K3")],
-            torch.from_numpy(pack["cam_to_world"]).to(dev),
-            torch.from_numpy(pack["depth_min"]).to(dev),
-            torch.from_numpy(pack["depth_max"]).to(dev),
-            torch.full((1,), float(pack["discard_percentage"])))
-    first, second = model(*args), model(*args)
-    for a, b in zip(first, second):
-        for x, y in zip(a, b):
-            assert torch.equal(x, y)
+
+def _culled_equals_full(dev, cfg, vol, depth, rgb, K, pose: np.ndarray):
+    """At ``pose`` and turned by 20, 40 and 60 degrees: integrate_culled
+    equals integrate, and both culled renders equal the full walk."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    H, W = depth.shape
+    for deg in (0.0, 20.0, 40.0, 60.0):
+        a, turn = np.deg2rad(deg), np.eye(4, dtype=np.float32)
+        turn[[0, 0, 2, 2], [0, 2, 0, 2]] = (np.cos(a), np.sin(a), -np.sin(a),
+                                            np.cos(a))
+        p = torch.from_numpy(pose @ turn).to(dev)
+        slots, n_vis = tt.visible_slots(cfg, vol, K, p, H, W)
+        n_vis = int(n_vis)
+        full = tt.integrate(cfg, tt.copy_volume(vol), depth, rgb, K, p)
+        cull = tt.integrate_culled(cfg, tt.copy_volume(vol), depth, rgb, K,
+                                   p, slots, n_vis)
+        for f in ("tsdf", "weight", "color"):
+            assert torch.equal(getattr(full, f), getattr(cull, f)), (deg, f)
+        ax_slots, ax_counts = tt.surface_axis_slots(cfg, vol, K, p, H, W)
+        r_full = tt.render_depth_splat(cfg, vol, K, p, H, W)
+        assert torch.equal(r_full, tt.render_depth_splat(
+            cfg, vol, K, p, H, W, slots=slots, n_visible=n_vis)), deg
+        assert torch.equal(r_full, tt.render_depth_splat(
+            cfg, vol, K, p, H, W, axis_slots=ax_slots,
+            axis_counts=ax_counts.tolist())), deg
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_golden_pack_and_keyframes_on_card(dev, dtype):
+    """The trained 640x480 unit on the card: the golden pack within
+    GOLDEN_TOL (f32, the reference's boot check) or BF16_TOL, its outputs
+    float32 and finite; then N_KEYFRAMES keyframes of the golden window
+    through TandemBackend, the render agreeing with the MVSNet depth, and
+    culled fusion equal to the full walk on that map. Launches as named."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    runner, pack = load_runner(dev, dtype)
+    reset_counts()
+    out = _golden_forward(runner, pack, dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_edge_filter("golden", counts["edge_kth"], edge_calls(), 3)
+    require_launched("golden", counts, ("bilinear_sample",))
+    require_not_launched("golden", counts, ("bilinear_index", "corner_blend"))
+    worst = 0.0
+    for s in ("stage1", "stage2", "stage3"):
+        for f in ("depth", "confidence", "depth_dense", "confidence_dense"):
+            got = getattr(getattr(out, s), f)
+            assert got.dtype == torch.float32, (s, f)
+            got = got.cpu().numpy()
+            assert np.isfinite(got).all(), (s, f)
+            worst = max(worst, float(np.abs(got - pack[f"out.{s}.{f}"])
+                                     .mean()))
+    assert worst < (GOLDEN_TOL if dtype == torch.float32 else BF16_TOL), worst
+
+    cfg = tt.TsdfConfig()
+    K = pack["K3"][0]
+    H, W = runner.height, runner.width
+    bgrs, _, ref_pose = golden_window(pack)
+    backend = _golden_keyframes(runner, pack, cfg)
+    counts = read_counts()
+    require_edge_filter("keyframes", counts["edge_kth"], edge_calls(),
+                        N_KEYFRAMES)
+    require_launched("keyframes", counts, ("bilinear_sample",), N_KEYFRAMES)
+    require_launched("keyframes", counts, ("tsdf_integrate", "tsdf_splat"),
+                     N_KEYFRAMES - 1)
+    require_launched("keyframes", counts, ("tsdf_fill_holes",),
+                     2 * (N_KEYFRAMES - 1))
+    require_not_launched("keyframes", counts,
+                         ("bilinear_index", "corner_blend"))
+    rdepth = backend.get_tracking_depth_map()["depth"]
+    mvs = runner.get_result(device=True)["depth"]
+    assert mvs.dtype == torch.float32
+    rd, md = rdepth.cpu().numpy(), mvs.cpu().numpy()
+    assert rd.shape == (H, W) and np.isfinite(rd).all() and (rd >= 0).all()
+    want = (md >= cfg.min_depth) & (md <= cfg.max_depth)
+    both = want & (rd > 0)
+    assert (rd[want] > 0).mean() > 0.8
+    assert np.median(np.abs(rd[both] - md[both])) < 2 * cfg.voxel_size
+    rgb = torch.from_numpy(np.ascontiguousarray(
+        bgrs[-2][..., ::-1], dtype=np.float32)).to(dev)
+    _culled_equals_full(dev, cfg, backend.volume, mvs, rgb,
+                        torch.from_numpy(K).to(dev),
+                        np.asarray(ref_pose, np.float32))
+
+
+def _golden_keyframes(runner, pack, cfg):
+    """N_KEYFRAMES calls of TandemBackend on the golden window, the launch
+    counters set to 0 before them."""
+    from tandem_tpu_torch.pipeline.backend import TandemBackend
+    bgrs, poses, ref_pose = golden_window(pack)
+    backend = TandemBackend(runner, cfg, pack["K3"][0], runner.height,
+                            runner.width, mesh_extraction_freq=0)
+    reset_counts()
+    for _ in range(N_KEYFRAMES):
+        backend.call(bgrs, poses, float(pack["depth_min"][0]),
+                     float(pack["depth_max"][0]), ref_pose)
+    torch.cuda.synchronize()
+    return backend
+
+
+def test_track_at_640x480_on_card(dev):
+    """The tracker at the deployed size: the f32 golden keyframes' map
+    rendered for golden view 0 is the dense reference, and views 1-6 are
+    tracked from the identity by track_frame, by track_frame_multi over 5
+    motion candidates and over the 15 rotation perturbations. The golden
+    views are not photometrically consistent with their poses, so no
+    accuracy bar: every pose finite, each call one track_lm launch a level
+    and one K6 launch, and track_frame one host read."""
+    from tandem_tpu_torch.core.se3 import se3_exp
+    from tandem_tpu_torch.data.replica import gray
+    from tandem_tpu_torch.mapping import tsdf as tt
+    from tandem_tpu_torch.tracking.coarse_tracker import (
+        NUM_LEVELS, rotation_perturbations, track_frame, track_frame_multi)
+    runner, pack = load_runner(dev, torch.float32)
+    backend = _golden_keyframes(runner, pack, tt.TsdfConfig())
+    grays = [gray(np.ascontiguousarray(v.transpose(1, 2, 0)[..., ::-1]))
+             .astype(np.float32) for v in pack["image"][0]]
+    K3 = pack["K3"][0]
+    dm = backend.get_tracking_depth_map()
+    ref = _dense_ref(dev, dm["depth"], torch.from_numpy(np.asarray(
+        dm["c2w"], np.float32)).to(dev), grays[0],
+        torch.from_numpy(K3).to(dev), *(float(K3[i]) for i in (
+            (0, 0), (1, 1), (0, 2), (1, 2))))
+    eye = torch.eye(4, device=dev)
+    aff0 = torch.tensor([1.0, 0.0], device=dev)
+    moves = torch.tensor([[0.01, 0, 0, 0, 0, 0], [-0.01, 0, 0, 0, 0, 0],
+                          [0, 0.01, 0, 0, 0, 0], [0, 0, 0, 0, 0.005, 0]],
+                         device=dev)
+    cand5 = torch.cat([eye[None], se3_exp(moves)]).contiguous()
+    cand15 = torch.from_numpy(rotation_perturbations()).to(dev)
+    track_frame(ref, torch.from_numpy(grays[1]).to(dev), eye, aff0)
+    for v in range(1, len(grays)):
+        img = torch.from_numpy(grays[v]).to(dev)
+        for name, fn in (
+                ("track_frame", lambda: track_frame(ref, img, eye, aff0)),
+                ("multi 5", lambda: track_frame_multi(ref, img, cand5,
+                                                      aff0)),
+                ("multi 15", lambda: track_frame_multi(ref, img, cand15,
+                                                       aff0))):
+            reset_counts()
+            out = {}
+            reads = _host_reads(lambda: out.update(fn()))
+            counts = read_counts()
+            assert bool(torch.isfinite(out["T"]).all()), (v, name)
+            assert (counts["track_lm"], counts["track_reduce"]) == (
+                NUM_LEVELS, 1), (v, name, counts)
+            assert name != "track_frame" or reads == 1, (v, reads)
 
 
 # --- P5 bilinear_index, P3 corner_blend, row_gather (P1/P2/P4) -------------
@@ -325,6 +496,32 @@ def test_warp_sample_kernel_equals_plain(dev, dtype, C, nb):
     assert warp_sample.launches == before + 1
     assert out.dtype == dtype and out.shape == (nb, 3, H, W, C)
     assert torch.equal(out, warp_sample_plain(img, mat, depth))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("stage", ["stage1", "stage2", "stage3"])
+@pytest.mark.parametrize("size", ["640x480", "256x192"])
+def test_warp_sample_golden_sweep_equals_plain(dev, size, stage, dtype):
+    """warp_sample on the golden pack's view 0 <- 1 sweep (and with half
+    of it behind the moved source camera) and bilinear_sample on
+    sweep-like positions, at abl04's 640x480 and the fixture's 256x192
+    stage shapes: equal to the plain versions bit for bit."""
+    from tandem_tpu_torch.ops.bilinear_sample import (bilinear_sample,
+                                                      bilinear_sample_plain,
+                                                      warp_sample,
+                                                      warp_sample_plain)
+    shapes = STAGE_SHAPES if size == "640x480" else SLAM_STAGE_SHAPES
+    D, Hs, Ws, C = shapes[stage]
+    gen = torch.Generator(device=dev).manual_seed(3)
+    feat = torch.randn((1, Hs, Ws, C), generator=gen, device=dev).to(dtype)
+    for behind in (True, False):
+        mat, depth, _ = _golden_sweep(dev, stage, D, Hs, Ws, behind, shapes)
+        assert torch.equal(warp_sample(feat, mat, depth),
+                           warp_sample_plain(feat, mat, depth)), behind
+    x, y, keep = (a.reshape(1, -1)
+                  for a in _warp_positions(dev, gen, D, Hs, Ws))
+    assert torch.equal(bilinear_sample(feat, x, y, keep),
+                       bilinear_sample_plain(feat, x, y, keep))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -595,25 +792,26 @@ def test_deconv_bf16_matches_f32_cast_down(dev):
 
 
 def test_probes_run_on_card(dev):
-    """The three probe entry points at reduced sizes (chip_smoke runs them
-    at the JAX probes' shapes)."""
+    """The three probe entry points at reduced sizes, each launching its
+    kernels (row_gather, corner_blend, bilinear_index)."""
     from tandem_tpu_torch.experiments import (gather_probe, idxchain_probe,
                                               shuffle_probe)
+    reset_counts()
     res = gather_probe.main(sizes=(4096,), m=5000, iters=5)
     assert set(res) == {"row_gather", "corner_blend"}
     assert len(shuffle_probe.main(m=3000, lanes=(16, 64), g=2, iters=5)) == 2
     assert len(idxchain_probe.main(n=128 * 64, iters=5)) == 2
+    require_launched("probes", read_counts(),
+                     ("row_gather", "corner_blend", "bilinear_index"))
 
 
 # --- K6 track_reduce, the LM kernel track_lm, the culled TSDF paths -------
 
 def _k6_case(dev, N, B, H=61, W=83, seed=0):
-    from chip_smoke import _track_case
     return _track_case(dev, N, B, H, W, seed)
 
 
 def _k6_check(case, tdist=False):
-    from chip_smoke import _double
     from tandem_tpu_torch.ops.track_reduce import (track_reduce,
                                                    track_reduce_plain)
     before = track_reduce.launches
@@ -675,8 +873,7 @@ def test_track_reduce_rejects_bad_input(dev):
 @pytest.mark.parametrize("N", [1, 1000, 1025, 4097])
 def test_track_lm_step_matches_f64(dev, B, N):
     """One kernel step from a plain state against lm_step_plain in float64
-    (chip_smoke._lm_one_step raises past its stated tolerances)."""
-    from chip_smoke import _lm_one_step
+    (_lm_one_step raises past its stated tolerances)."""
     from tandem_tpu_torch.ops.track_lm import lm_level
     before = lm_level.launches
     _lm_one_step(dev, N, B, 61, 83, 50, seed=N + B)
@@ -687,9 +884,8 @@ def test_track_lm_step_matches_f64(dev, B, N):
 @pytest.mark.parametrize("N", [1000, 4097])
 def test_track_lm_level_matches_plain(dev, B, N):
     """A whole level on the kernel against lm_level_plain on the card,
-    within chip_smoke's LM_POSE_PX and LM_AFF_TOL (sums in another order
-    can flip a near-tie accept)."""
-    from chip_smoke import LM_AFF_TOL, LM_POSE_PX
+    within LM_POSE_PX and LM_AFF_TOL (sums in another order can flip a
+    near-tie accept)."""
     from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
     case = _k6_case(dev, N, B, seed=N + 2 * B)
     before = lm_level.launches
@@ -726,7 +922,6 @@ def test_track_lm_empty_and_saturated(dev):
 def test_tdist_track_lm_level_matches_plain(dev, B, N):
     """The Student-t level on the kernel against lm_level_plain with the t
     weights on the card, within the same tolerances as the Huber level."""
-    from chip_smoke import LM_AFF_TOL, LM_POSE_PX
     from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
     case = _k6_case(dev, N, B, seed=N + 2 * B)
     before = lm_level.launches
@@ -743,15 +938,38 @@ def test_tdist_track_lm_level_matches_plain(dev, B, N):
 def test_track_lm_one_launch_a_level(dev, tdist):
     """One launch and no host read a level; every recorded step against
     the plain step, the result equal to the history's and the sums at the
-    accepted poses equal to K6's (chip_smoke._lm_level_steps raises
-    otherwise)."""
-    from chip_smoke import _host_reads, _lm_level_steps
+    accepted poses equal to K6's (_lm_level_steps raises otherwise)."""
     from tandem_tpu_torch.ops.track_lm import lm_level
     case = _k6_case(dev, 4097, 5, seed=7)
     _lm_level_steps(dev, case, 50, "card test", tdist)
     before = lm_level.launches
     assert _host_reads(lambda: lm_level(*case, 50, tdist)) == 0
     assert lm_level.launches == before + 1
+
+
+@pytest.mark.parametrize("tdist", [False, True])
+@pytest.mark.parametrize("level", range(7))
+def test_track_kernels_at_the_level_caps(dev, level, tdist):
+    """K6 and track_lm at the tracker's level caps (``_track_shapes``),
+    B = 1, 5, 15: K6 against float64, one LM step against float64, every
+    step of a level against the plain step, no host read in a level, and
+    the end point against lm_level_plain unless the two parted at a
+    near-tie (another iteration count; never at the 640x480 cap)."""
+    from tandem_tpu_torch.ops.track_lm import lm_level, lm_level_plain
+    N, Hl, Wl, max_iter = _track_shapes()[level]
+    for B in (1, 5, 15):
+        case = _k6_case(dev, N, B, Hl, Wl, seed=10 * level + B)
+        _k6_check(case, tdist)
+        _lm_one_step(dev, N, B, Hl, Wl, 50, 100 + 10 * level + B, tdist)
+        _, got = _lm_level_steps(dev, case, max_iter, f"level {level} B={B}",
+                                 tdist)
+        ref = lm_level_plain(*case, max_iter, tdist)
+        close = (float((got[0] - ref[0]).abs().max())
+                 <= LM_POSE_PX / case[4][0]
+                 and float((got[1] - ref[1]).abs().max()) <= LM_AFF_TOL)
+        parted = level > 0 and int(got[4]) != int(ref[4])
+        assert bool(torch.isfinite(got[0]).all()) and (close or parted), B
+        assert _host_reads(lambda: lm_level(*case, max_iter, tdist)) == 0
 
 
 def test_track_lm_rejects_bad_input(dev):
@@ -861,6 +1079,118 @@ def test_culled_tsdf_equals_full_on_card(dev):
             cfg, vol, K, p, Hh, Ww, slots=slots, n_visible=int(n_vis)))
         assert torch.equal(full, tt.render_depth_splat(
             cfg, vol, K, p, Hh, Ww, axis_slots=s3, axis_counts=c3.tolist()))
+
+
+def test_tsdf_wall_on_card(dev):
+    """tests/test_tsdf.py::test_render_depth_splat_wall at 640x480 on the
+    card, default TSDF: a wall at 2 m renders with hit > 0.97 and median
+    |error| < 1.5 voxels (shifted pose: > 0.9, < 2 voxels); culled fusion
+    equals the full walk on it."""
+    from tandem_tpu_torch.mapping import tsdf as tt
+    Hh, Ww = 480, 640
+    cfg = tt.TsdfConfig()
+    K = torch.tensor([[499.2, 0, 319.5], [0, 499.2, 239.5], [0, 0, 1]],
+                     device=dev)
+    pose = torch.eye(4, device=dev)
+    depth = torch.full((Hh, Ww), 2.0, device=dev)
+    color = torch.full((Hh, Ww, 3), 100.0, device=dev)
+    vol = tt.allocate_blocks(cfg, tt.create_volume(cfg, dev), depth, K, pose)
+    for _ in range(3):
+        tt.integrate(cfg, vol, depth, color, K, pose)
+    crop = tt.render_depth_splat(cfg, vol, K, pose, Hh, Ww).cpu().numpy()[
+        64:-64, 64:-64]
+    assert (crop > 0).mean() > 0.97
+    assert np.median(np.abs(crop[crop > 0] - 2.0)) < 1.5 * cfg.voxel_size
+    pose2 = torch.tensor([[1, 0, 0, 0.15], [0, 1, 0, 0.0], [0, 0, 1, -0.3],
+                          [0, 0, 0, 1]], dtype=torch.float32, device=dev)
+    c2 = tt.render_depth_splat(cfg, vol, K, pose2, Hh, Ww).cpu().numpy()[
+        80:-80, 112:-112]
+    assert (c2 > 0).mean() > 0.9
+    assert np.median(np.abs(c2[c2 > 0] - 2.3)) < 2 * cfg.voxel_size
+    _culled_equals_full(dev, cfg, vol, depth, color, K,
+                        np.eye(4, dtype=np.float32))
+
+
+def test_track_against_the_gt_model_on_card(dev):
+    """replica_traj's GT depths 0-6 fused on the card, the render at frame
+    6 the dense reference, frames 7-14 tracked from the constant-motion
+    prediction within GT_TRACK_BOUND; track_frame_multi over the 15
+    rotation perturbations gives a finite pose."""
+    from tandem_tpu_torch.data.replica import ReplicaScene
+    from tandem_tpu_torch.mapping import tsdf as tt
+    from tandem_tpu_torch.tracking.coarse_tracker import (
+        rotation_perturbations, track_frame_multi)
+    scene = ReplicaScene(FIXTURE)
+    cfg = tt.TsdfConfig()
+    K = torch.from_numpy(scene.K).to(dev)
+    vol = tt.create_volume(cfg, dev)
+    for i in range(7):
+        d = torch.from_numpy(scene.depth(i)).to(dev)
+        p = torch.from_numpy(scene.c2w(i)).to(dev)
+        rgb = torch.from_numpy(np.ascontiguousarray(
+            scene.bgr(i)[..., ::-1], dtype=np.float32)).to(dev)
+        tt.allocate_blocks(cfg, vol, d, K, p)
+        tt.integrate(cfg, vol, d, rgb, K, p)
+    pose = torch.from_numpy(scene.c2w(6)).to(dev)
+    slots, counts = tt.surface_axis_slots(cfg, vol, K, pose, scene.height,
+                                          scene.width)
+    rdepth = tt.render_depth_splat(cfg, vol, K, pose, scene.height,
+                                   scene.width, axis_slots=slots,
+                                   axis_counts=counts.tolist())
+    reset_counts()
+    ref = _dense_ref(dev, rdepth, pose, scene.gray(6), K, scene.fx,
+                     scene.fy, scene.cx, scene.cy)
+    errs = _track_loop(dev, scene, ref, 6, list(range(7, 15)), "track gt")
+    require_launched("track gt", read_counts(), ("track_reduce", "track_lm"))
+    assert max(e for e, _ in errs) < GT_TRACK_BOUND, errs
+    multi = track_frame_multi(
+        ref, torch.from_numpy(scene.gray(7)).to(dev),
+        torch.from_numpy(rotation_perturbations()).to(dev),
+        torch.tensor([1.0, 0.0], device=dev))
+    assert bool(torch.isfinite(multi["T"]).all())
+
+
+def test_track_against_the_mvs_model_on_card(dev):
+    """tests/test_torch_tracker.py::test_track_against_the_mvs_model on the
+    card (trained unit, f32): the 8 frames after the reference tracked
+    within MVS_TRACK_BOUND, with the map path's and tracker's launches."""
+    import json
+
+    from tandem_tpu_torch.data.replica import ReplicaScene
+    from tandem_tpu_torch.mapping.tsdf import TsdfConfig
+    from tandem_tpu_torch.models.convert import load_variables
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.pipeline.backend import TandemBackend
+    from tandem_tpu_torch.pipeline.mvsnet_runner import MvsnetRunner
+    scene = ReplicaScene(FIXTURE)
+    cfg = json.loads((UNIT / "model_config.json").read_text())
+    runner = MvsnetRunner(CvaMVSNet(**cfg, dtype=torch.float32),
+                          load_variables(UNIT / "model_variables.pkl"),
+                          scene.height, scene.width, view_num=7, device=dev)
+    backend = TandemBackend(runner, TsdfConfig(), scene.K, scene.height,
+                            scene.width)
+    reset_counts()
+    for window in scene.windows[:2]:
+        depths = [scene.depth(i) for i in window]
+        valid = np.concatenate([d[d > 0] for d in depths])
+        backend.call([scene.bgr(i) for i in window],
+                     [scene.c2w(i) for i in window], float(valid.min()),
+                     float(valid.max()), scene.c2w(window[-1]))
+    ref_id = scene.windows[1][-1]
+    dm = backend.get_tracking_depth_map()
+    K = torch.from_numpy(scene.K).to(dev)
+    c2w = torch.from_numpy(np.asarray(dm["c2w"], np.float32)).to(dev)
+    ref = _dense_ref(dev, dm["depth"], c2w, scene.gray(ref_id), K, scene.fx,
+                     scene.fy, scene.cx, scene.cy)
+    errs = _track_loop(dev, scene, ref, ref_id,
+                       list(range(ref_id + 1, ref_id + 9)), "track mvs")
+    counts = read_counts()
+    require_edge_filter("track mvs", counts["edge_kth"], edge_calls(), 2)
+    require_launched("track mvs", counts,
+                     ("bilinear_sample", "track_reduce", "track_lm"))
+    require_not_launched("track mvs", counts,
+                         ("bilinear_index", "corner_blend"))
+    assert max(e for e, _ in errs) <= MVS_TRACK_BOUND, errs
 
 
 # --- The fusion kernels (csrc/tsdf_fuse.cu) ----------------------------------
@@ -1117,7 +1447,6 @@ def test_card_backend_equals_cpu_route(dev, monkeypatch):
         assert float((a.cpu() - b).abs().max()) <= 1e-5
 
 
-
 def _textured_plane(c2w, Hh=120, Ww=160, f=150.0):
     """Intensity and z-depth of a textured plane z_w = 2 seen from c2w."""
     cx, cy = (Ww - 1) / 2, (Hh - 1) / 2
@@ -1195,9 +1524,10 @@ def test_raycast_card_matches_cpu(dev):
 
 
 def test_dr_debug_example_on_card(dev, tmp_path):
-    """The dr_debug_example CLI on the card for two frames of
-    tests/fixtures/replica_traj: the printed lines, the render PNGs, and
-    the renders within the GT-depth bars (hits > 0.8, median < 2 voxels)."""
+    """The dr_debug_example CLI on the card for the first 20 frames of
+    tests/fixtures/replica_traj (its default --limit): the printed lines,
+    the render PNGs, a non-empty mesh, and every render within the
+    GT-depth bars (hits > 0.8, median < 2 voxels)."""
     import contextlib
     import io
     import os
@@ -1211,14 +1541,15 @@ def test_dr_debug_example_on_card(dev, tmp_path):
         os.path.join(fx, "depths"), "--calib",
         os.path.join(fx, "camera_dso.txt"), "--poses",
         os.path.join(fx, "gt_tum.txt"), "--out", str(tmp_path),
-        "--depth-scale", "0.0002", "--limit", "2"])
+        "--depth-scale", "0.0002"])
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res = cli.main(args)
     lines = buf.getvalue().splitlines()
-    assert [ln.split(":")[0] for ln in lines] == ["frame 0", "frame 1",
-                                                  "mesh"]
+    assert [ln.split(":")[0] for ln in lines] == [
+        f"frame {i}" for i in range(args.limit)] + ["mesh"]
     assert res["volume"].tsdf.is_cuda and res["vertices"] > 0
+    assert len(res["renders"]) == args.limit
     reader = RGBDReader(os.path.join(fx, "images"),
                         depth_path=os.path.join(fx, "depths"),
                         depth_scale=2e-4)
@@ -1324,18 +1655,13 @@ def test_trace_points_card_matches_cpu(dev):
         assert (a - b)[same].abs().max() <= 1e-4 * a.abs().max()
 
 
-# abl04 at 640x480: per stage (depth planes, H, W, feature channels).
-ABL04_STAGES = {"stage1": (48, 120, 160, 32), "stage2": (4, 240, 320, 16),
-                "stage3": (4, 480, 640, 8)}
-
-
 def _grad_case(dev, stage: str, dtype, seed: int = 0, B: int = 1):
     """A plane sweep at an abl04 stage shape: grad_out, ref->src matrices
     and depths. Item 0's matrix moves the camera sideways and forward (part
     of the sweep falls outside the image) over depths of 0.2-6 m with a
     band behind the source camera; item 1 (B = 2, as training gives it)
     turns the camera and moves it back, over depths of 0.5-4 m."""
-    D, Hs, Ws, C = ABL04_STAGES[stage]
+    D, Hs, Ws, C = STAGE_SHAPES[stage]
     rng = np.random.RandomState(seed)
     f = 0.9 * Ws
     K = np.array([[f, 0, Ws / 2], [0, f, Hs / 2], [0, 0, 1]], np.float64)
@@ -1372,7 +1698,7 @@ def _assert_grad_matches_plain(acc, gout, mat, depth, tol: float = 1e-4):
 
 @pytest.mark.parametrize("B", [1, 2])
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("stage", list(ABL04_STAGES))
+@pytest.mark.parametrize("stage", list(STAGE_SHAPES))
 def test_warp_sample_grad_kernel_matches_plain(dev, dtype, stage, B):
     """The backward kernel at the abl04 640x480 stage shapes, B = 1 and 2
     (each item its own matrix and depths): each item's float32 sums within
@@ -1399,7 +1725,7 @@ def _run_case(dev, stage: str, dtype, kind: str, D: int = None,
     way and down. The pattern is checked on the card's positions. Returns
     (grad_out, matrices, depths)."""
     from tandem_tpu_torch.ops.bilinear_sample import sweep_positions
-    D0, Hs, Ws, C0 = ABL04_STAGES[stage]
+    D0, Hs, Ws, C0 = STAGE_SHAPES[stage]
     D, C = D or D0, C or C0
     Hs, Ws = hw or (Hs, Ws)
     rng = np.random.RandomState(seed)
@@ -1598,22 +1924,80 @@ def test_train_step_on_card(dev, dtype, monkeypatch):
     assert abs(losses[str(dev)] / losses["cpu"] - 1) < tol, losses
 
 
+def test_train_cli_epoch_and_resume_on_card(dev, tmp_path):
+    """tandem_train (abl04, 640x480, B = 2, f32) on replica_traj: one epoch
+    of 7 steps, then a resume with --pretrained to step 14; finite losses,
+    18 launches of each sample kernel a step."""
+    first = _train_cli(dev, tmp_path / "epoch")
+    r = first["res"]
+    _require_step_launches("train epoch", first["counts"], r["steps"], 18)
+    ckpt = r["checkpoints"][-1]
+    assert r["steps"] == 7 and ckpt.endswith("step_00000007")
+    assert np.isfinite(r["losses"]).all()
+    again = _train_cli(dev, tmp_path / "resume", ckpt)
+    r2 = again["res"]
+    _require_step_launches("train resume", again["counts"], r2["steps"], 18)
+    assert r2["checkpoints"][-1].endswith("step_00000014")
+    assert np.isfinite(r2["losses"]).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_learns_on_card(dev, dtype):
+    """tests/test_train_learns.py's curve on the card at abl04 640x480
+    (B = 2, replica_traj tuples 0 and 7): f32 over CURVE_STEPS steps, the
+    last 5 losses' mean under half the first 5's; bf16 over BF16_STEPS,
+    falling. 18 launches of each sample kernel a step; the first step's
+    backward calls match the plain gradient."""
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    from tandem_tpu_torch.train import trainer as pt
+    config = pcfg.default()
+    pcfg.merge_from_file(config, str(ABL04_CONFIG))
+    config["TRAIN.COMPUTE_DTYPE"] = dtype
+    ds = MVSDataset(str(TRAIN_ROOT), "val", height=480, width=640)
+    batch = pt.batch_to_device(collate([ds[0], ds[7]]), dev)
+    steps = CURVE_STEPS if dtype == "float32" else BF16_STEPS
+    model, state = pt.create_train_state(
+        config, torch.Generator().manual_seed(0), 200, device=dev)
+    step = pt.make_train_step(model, config)
+    reset_counts()
+    state, m, calls = _recorded_step(step, state, batch)
+    assert len(calls) == 18
+    for gout, mat, depth, _, acc in calls:
+        _assert_grad_matches_plain(acc, gout, mat, depth)
+    del calls
+    losses = [float(m["loss"])]
+    for _ in range(steps - 1):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    _require_step_launches("train curve", read_counts(), steps, 18)
+    assert np.isfinite(losses).all(), losses
+    if dtype == "float32":
+        assert np.mean(losses[-5:]) < 0.5 * np.mean(losses[:5]), losses
+    else:
+        assert np.mean(losses[-3:]) < np.mean(losses[:3]), losses
+
+
 def test_runtime_preset_on_card(dev, tmp_path):
     """tandem_dataset preset=runtime (preload=1, dense tracking) with the
-    trained unit on the card: chip_smoke.py's synthetic 640x480 sequence,
-    24 frames. Every frame tracked, the prefetch-free route (preload) timed
-    in read_frame, keyframes made, and the backend launched K1's filter
-    and the plane-sweep sample."""
+    trained unit on the card: the synthetic 640x480 sequence of
+    ``torch_cases.write_runtime_sequence``, 24 frames. Every frame
+    tracked, the prefetch-free route (preload) timed in read_frame,
+    keyframes made, the backend launched K1's filter and the plane-sweep
+    sample, and the tracker K6 and track_lm."""
     import os
 
-    import chip_smoke
     from tandem_tpu_torch.cli import tandem_dataset
     from tandem_tpu_torch.ops.bilinear_sample import warp_sample
     from tandem_tpu_torch.ops.edge_kth import edge_filter
-    chip_smoke.write_runtime_sequence(tmp_path / "seq", n=24)
+    from tandem_tpu_torch.ops.track_lm import lm_level
+    from tandem_tpu_torch.ops.track_reduce import track_reduce
+    write_runtime_sequence(tmp_path / "seq", n=24)
     unit = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                         "exported", "tandem")
-    before = (edge_filter.calls, warp_sample.launches)
+    before = (edge_filter.calls, warp_sample.launches, track_reduce.launches,
+              lm_level.launches)
     res = tandem_dataset.main(
         ["preset=runtime", f"files={tmp_path / 'seq' / 'images'}",
          f"calib={tmp_path / 'seq' / 'camera.txt'}",
@@ -1624,39 +2008,197 @@ def test_runtime_preset_on_card(dev, tmp_path):
     assert len(res["timer"].intervals["read_frame"]) == 24
     assert res["backend"].call_num >= 1
     assert edge_filter.calls > before[0] and warp_sample.launches > before[1]
+    assert track_reduce.launches > before[2] and lm_level.launches > before[3]
     assert (tmp_path / "out" / "result.txt").read_text().count("\n") == 24
 
 
+def test_runtime_preset_full_sequence_on_card(dev, tmp_path):
+    """tandem_dataset preset=runtime with the trained unit at the preset's
+    own settings on bench_runtime.py's RUNTIME_FRAMES-frame 640x480
+    sequence: at least RUNTIME_MIN_POSES poses, not lost, the backend
+    called, K1's filter (its launches a call), the plane-sweep sample, K6
+    and track_lm launched."""
+    from tandem_tpu_torch.cli import tandem_dataset
+    write_runtime_sequence(tmp_path / "seq", n=RUNTIME_FRAMES)
+    reset_counts()
+    res = tandem_dataset.main(
+        ["preset=runtime", f"files={tmp_path / 'seq' / 'images'}",
+         f"calib={tmp_path / 'seq' / 'camera.txt'}",
+         f"result_folder={tmp_path / 'out'}", f"mvsnet_folder={UNIT}",
+         "dr_timing=1"], device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_poses = len((tmp_path / "out" / "result.txt").read_text()
+                  .splitlines())
+    assert n_poses >= RUNTIME_MIN_POSES and not res["fs"].is_lost, (
+        n_poses, res["fs"].is_lost)
+    assert res["backend"].call_num >= 1
+    require_edge_filter("runtime", counts["edge_kth"], edge_calls(), 1)
+    require_launched("runtime", counts,
+                     ("bilinear_sample", "track_lm", "track_reduce"))
+
+
+def _require_slam_run(path, r, mvsnet: bool):
+    """A ``torch_cases._slam_run`` on the trajectory fixture:
+    tests/test_vo_ate.py's frame and ATE bars, the tracker's kernels; with
+    the unit, the backend, the edge filter and the sample."""
+    assert r["pairs"] >= SLAM_MIN_FRAMES, (path, r["pairs"])
+    assert r["ate"]["rmse"] < SLAM_ATE_BOUND, (path, r["ate"])
+    require_launched(path, r["counts"], ("track_reduce", "track_lm"))
+    if mvsnet:
+        assert r["res"]["backend"].call_num >= 1, path
+        require_edge_filter(path, r["counts"]["edge_kth"], r["edge_calls"], 1)
+        require_launched(path, r["counts"], ("bilinear_sample",))
+
+
+def test_slam_on_card(dev, tmp_path):
+    """tandem_dataset on replica_traj's 64 frames: VO only, then with the
+    trained unit twice (the prefetcher, then preload=1), each within
+    ``_require_slam_run``'s bars; the full runs write a mesh and the same
+    result.txt."""
+    runs = {}
+    for tag, mvsnet, preload in (("vo", False, False), ("full", True, False),
+                                 ("full_again", True, True)):
+        runs[tag] = r = _slam_run(dev, tmp_path / tag, mvsnet,
+                                  preload=preload)
+        _require_slam_run(f"slam {tag}", r, mvsnet)
+        if mvsnet:
+            assert len(r["res"]["backend"].last_mesh[0]) > 0
+            assert (tmp_path / tag / "mesh.obj").stat().st_size > 0
+    assert runs["full"]["digest"] == runs["full_again"]["digest"]
+
+
+def test_exported_units_on_card(dev, tmp_path, capsys):
+    """tandem_export on the card: the trained unit at 640x480 replays the
+    golden pack through a fresh load of model.pt2 within GOLDEN_TOL (18
+    sample launches, one edge filter); a weightless unit exported at
+    256x192 serves tandem_dataset on replica_traj with its boot
+    self-check, within ``_require_slam_run``'s bars."""
+    import json
+    import shutil
+
+    from tandem_tpu_torch.cli import tandem_export as te
+    cfg = json.loads((UNIT / "model_config.json").read_text())
+    pack = np.load(UNIT / "sample_inputs.npz")
+    _, V, _, Hh, Ww = pack["image"].shape
+    args = ["--ckpt", str(UNIT / "model_variables.pkl"), "--view-num",
+            str(V), "--depth-num", ",".join(str(d) for d in cfg["depth_num"]),
+            "--discard-percentage", str(float(pack["discard_percentage"])),
+            "--device", "cuda"]
+    te.main(te.parser.parse_args(args + [
+        "--out-dir", str(tmp_path / "unit"), "--width", str(Ww), "--height",
+        str(Hh)]))
+    program, _ = te.load_program(str(tmp_path / "unit"))
+    x = te.program_inputs(pack, float(pack["discard_percentage"]), dev)
+    reset_counts()
+    with torch.no_grad():
+        outs = program.module()(*x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    require_edge_filter("export replay", counts["edge_kth"], edge_calls(), 1)
+    assert counts["bilinear_sample"] == 3 * (V - 1)
+    require_not_launched("export replay", counts,
+                         ("bilinear_index", "corner_blend"))
+    worst = max(float(np.abs(pack["out." + k] - v.float().cpu().numpy())
+                      .mean()) for k, v in zip(te.STAGE3, outs))
+    assert worst < GOLDEN_TOL, worst
+
+    small = tmp_path / "small"
+    te.main(te.parser.parse_args(args + [
+        "--out-dir", str(small), "--width", "256", "--height", "192",
+        "--data-root", str(FIXTURE.parent)]))
+    unit = tmp_path / "weightless"
+    unit.mkdir()
+    for name in (te.PROGRAM, te.PROGRAM_INFO, "model_config.json",
+                 "sample_inputs.npz"):
+        shutil.copy(small / name, unit / name)
+    capsys.readouterr()
+    r = _slam_run(dev, tmp_path / "slam", True, unit=unit)
+    assert "MVSNet golden self-check" in capsys.readouterr().out
+    _require_slam_run("export slam", r, True)
+
+
+def test_decoder_on_the_card_host(dev):
+    """The C PNG decoder as the card's machine builds it, bit-equal to
+    data/replica.decode_png on a fixture frame and on a 640x480 frame whose
+    rows cycle through Paeth, Sub, Up and Average."""
+    from tandem_tpu_torch.data.replica import decode_png
+    from tandem_tpu_torch.native_bridge import decode_png_native
+    g = _runtime_frames(1, 480, 640)[0][0]
+    for data in ((FIXTURE / "images" / "000000.png").read_bytes(),
+                 _png_filtered(np.repeat(g[..., None], 3, -1))):
+        a, b = decode_png_native(data), decode_png(data)
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_rgbd_on_card(dev, tmp_path):
+    """FullSystem(rgbd=True) on replica_traj's frames and sensor depths:
+    VO only on 64 frames within RGBD_ATE_BOUND (SE(3)), dvo's pose kept on
+    RGBD_DVO_POSES +- RGBD_DVO_POSES_SLACK frames; with the trained unit
+    on 48, the backend called and result.txt equal to the VO run's first
+    48 lines (the sensor depth feeds the tracker). Launches as named."""
+    runs = {}
+    for tag, unit, frames in (("vo", False, 64), ("full", True, 48)):
+        (tmp_path / tag).mkdir()
+        runs[tag] = r = _rgbd_run(dev, tmp_path / tag, unit, frames=frames)
+        fs = r["fs"]
+        dvo = fs.n_dvo_frames - fs.n_dvo_fallbacks
+        assert dvo >= 1, tag
+        require_launched(f"rgbd {tag}", r["counts"], ("track_reduce",),
+                         at_least=dvo)
+        require_launched(f"rgbd {tag}", r["counts"], ("track_lm",))
+        if unit:
+            assert r["backend"].call_num >= 1
+            require_edge_filter(f"rgbd {tag}", r["counts"]["edge_kth"],
+                                r["edge_calls"], 1)
+            require_launched(f"rgbd {tag}", r["counts"], ("bilinear_sample",))
+    vo = runs["vo"]
+    assert vo["pairs"] >= SLAM_MIN_FRAMES
+    assert vo["ate"]["rmse"] <= RGBD_ATE_BOUND, vo["ate"]
+    assert abs(vo["fs"].n_dvo_poses - RGBD_DVO_POSES) <= RGBD_DVO_POSES_SLACK
+    assert runs["full"]["digest"] == vo["digest_48"]
+
+
 def test_demo_with_the_unit_on_card(dev, tmp_path):
-    """tandem_demo replay= record= with the trained unit on the card over
-    tests/fixtures/replica_traj's first 24 frames: the recording replays
-    through tandem_dataset to the same poses."""
+    """tandem_demo replay= record= with the trained unit over replica_traj's
+    first DEMO_FRAMES frames; the recording replayed through tandem_dataset
+    with its debug sinks gives the demo's poses and fills every sink."""
     import os
     import shutil
 
     from tandem_tpu_torch.cli import tandem_dataset, tandem_demo
-    repo = os.path.dirname(os.path.dirname(__file__))
-    fx = os.path.join(repo, "tests", "fixtures", "replica_traj", "scene0")
     src = tmp_path / "src"
     src.mkdir()
-    for i in range(24):
-        shutil.copy(os.path.join(fx, "images", f"{i:06d}.png"), src)
-    unit = os.path.join(repo, "exported", "tandem")
+    for i in range(DEMO_FRAMES):
+        shutil.copy(FIXTURE / "images" / f"{i:06d}.png", src)
+    rec, demo, replay = (tmp_path / d for d in ("rec", "demo", "replay"))
+    reset_counts()
     res = tandem_demo.main([f"replay={src}",
-                            f"calib={os.path.join(fx, 'camera_dso.txt')}",
-                            f"record={tmp_path / 'rec'}",
-                            f"result_folder={tmp_path / 'demo'}",
-                            f"mvsnet_folder={unit}", "demo_secs=600"],
+                            f"calib={FIXTURE / 'camera_dso.txt'}",
+                            f"record={rec}", f"result_folder={demo}",
+                            f"mvsnet_folder={UNIT}", "demo_secs=600"],
                            device=dev)
-    assert res["frames"] == 24 and res["fs"].device.type == "cuda"
-    assert len(os.listdir(tmp_path / "rec" / "images")) == 24
-    tandem_dataset.main([f"files={tmp_path / 'rec' / 'images'}",
-                         f"calib={tmp_path / 'rec' / 'camera.txt'}",
-                         f"result_folder={tmp_path / 'replay'}",
-                         f"mvsnet_folder={unit}",
-                         "desired_immature_density=512"], device=dev)
-    assert ((tmp_path / "replay" / "poses_dso.txt").read_bytes()
-            == (tmp_path / "demo" / "poses_dso.txt").read_bytes())
+    assert res["frames"] == DEMO_FRAMES and res["fs"].device.type == "cuda"
+    assert len(os.listdir(rec / "images")) == DEMO_FRAMES
+    assert len((rec / "times.txt").read_text().splitlines()) == DEMO_FRAMES
+    assert (rec / "camera.txt").exists()
+    require_launched("demo", read_counts(), ("track_lm", "track_reduce"))
+    reset_counts()
+    tandem_dataset.main([f"files={rec / 'images'}",
+                         f"calib={rec / 'camera.txt'}",
+                         f"result_folder={replay}", f"mvsnet_folder={UNIT}",
+                         "desired_immature_density=512", "log_stuff=1",
+                         "debug_save_depth_images=1", "save_dr_video=1",
+                         "viewer3d=1"], device=dev)
+    require_launched("demo replay", read_counts(),
+                     ("bilinear_sample", "track_lm", "track_reduce"))
+    assert ((replay / "poses_dso.txt").read_bytes()
+            == (demo / "poses_dso.txt").read_bytes())
+    cols = [[ln.split()[1:] for ln in (d / "result.txt").read_text()
+             .splitlines()] for d in (demo, replay)]
+    assert cols[0] == cols[1]
+    for d in ("logs", "depths", "dr_video", "view3d"):
+        assert os.listdir(replay / d), d
 
 
 def test_view_sharded_forward_on_card(dev):
@@ -1693,19 +2235,62 @@ def test_view_sharded_forward_on_card(dev):
         torch.testing.assert_close(c, ref.confidence, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_view_sharded_runner_golden_on_card(dev, dtype):
+    """The trained unit's view-sharded runner over [cuda:0] * n (n = 2, 4)
+    against the eager runner on the golden window at 640x480, within the
+    SHARD_* bars (f32 also the golden MAE under GOLDEN_TOL); 18 sample
+    launches and one edge filter a call."""
+    import json
+
+    from tandem_tpu_torch.models.convert import load_variables
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    from tandem_tpu_torch.pipeline.mvsnet_runner import MvsnetRunner
+    eager, pack = load_runner(dev, dtype)
+    want = _runner_outputs(eager, pack)
+    if dtype == torch.float32:
+        base = _golden_forward(eager, pack, dev).stage3.depth_dense
+        nudged = _golden_forward(eager, pack, dev,
+                                 1 + 2 ** -23).stage3.depth_dense
+        bar = max(SHARD_DEPTH_TOL[1],
+                  SHARD_FLOOR_X * float((nudged - base).abs().max()))
+    cfg = json.loads((UNIT / "model_config.json").read_text())
+    variables = load_variables(UNIT / "model_variables.pkl")
+    for n in (2, 4):
+        runner = MvsnetRunner(CvaMVSNet(**cfg, dtype=dtype), variables,
+                              eager.height, eager.width,
+                              view_num=eager.view_num, devices=[dev] * n)
+        reset_counts()
+        got = _runner_outputs(runner, pack)
+        counts = read_counts()
+        assert counts["bilinear_sample"] == 18, n
+        require_edge_filter(f"view shards n={n}", counts["edge_kth"],
+                            edge_calls(), 1)
+        d, d0 = got["depth_dense"], want["depth_dense"]
+        if dtype == torch.bfloat16:
+            assert np.abs(d - d0).mean() / np.abs(d0).mean() < SHARD_BF16_REL
+            continue
+        kept, kept0 = got["depth"] > 0, want["depth"] > 0
+        both = kept & kept0
+        assert max(float(np.abs(d - d0).max()), float(np.abs(
+            got["depth"][both] - want["depth"][both]).max())) <= bar, n
+        c, c0 = got["confidence_dense"], want["confidence_dense"]
+        assert (np.abs(c - c0) > SHARD_CONF_TOL[1] + SHARD_CONF_TOL[0]
+                * np.abs(c0)).mean() <= SHARD_FLIP_SHARE, n
+        assert (kept != kept0).mean() <= SHARD_FLIP_SHARE, n
+        assert max(float(np.abs(got[k] - pack[f"out.stage3.{k}"]).mean())
+                   for k in ("depth", "confidence", "depth_dense",
+                             "confidence_dense")) < GOLDEN_TOL, n
+
+
 def test_data_parallel_ranks_share_the_card(dev, tmp_path):
     """2 gloo ranks on cuda:0 (replica_traj tuples 0, 3, 7, 10 at 64x64,
     planes (8, 8, 4), 2 rows a rank, 2 steps) against one process at
     world_size 2 on the global batch on the card: losses within 5e-3
     relative, equal parameters on both ranks, and each rank's steps
     launch the sample and its backward kernel 18 times a step."""
-    import os
-
     from tandem_tpu_torch import config as pcfg
     from tandem_tpu_torch.data.replica import MVSDataset, collate
-    from tandem_tpu_torch.parallel.dryrun import (run_ranks, train_rank,
-                                                  train_steps)
-    from tandem_tpu_torch.train import trainer as pt
     config = pcfg.default()
     config.update({"MODEL.DEPTH_NUM": (8, 8, 4), "DATA.IMG_HEIGHT": 64,
                    "DATA.IMG_WIDTH": 64})
@@ -1713,24 +2298,49 @@ def test_data_parallel_ranks_share_the_card(dev, tmp_path):
                         "replica_traj")
     items = collate([MVSDataset(root, "val", height=64, width=64)[i]
                      for i in (0, 3, 7, 10)])
+    _ranks_against_one_process(dev, tmp_path, config, items, 2, 5e-3, 300)
+
+
+def test_data_parallel_ranks_at_640x480_on_card(dev, tmp_path):
+    """The same at abl04's 640x480 (its 48/4/4 planes): 2 gloo ranks on
+    cuda:0 with 2 of the trajectory fixture's DP_TUPLES each, DP_STEPS
+    steps, against one process at world_size 2 on all four: losses within
+    DP_RTOL, equal parameters on both ranks, 18 launches of the sample and
+    of its backward kernel a step."""
+    from tandem_tpu_torch import config as pcfg
+    from tandem_tpu_torch.data.replica import MVSDataset, collate
+    config = pcfg.default()
+    pcfg.merge_from_file(config, str(ABL04_CONFIG))
+    ds = MVSDataset(str(TRAIN_ROOT), "val", height=DP_SIZE[0],
+                    width=DP_SIZE[1])
+    items = collate([ds[i] for i in DP_TUPLES])
+    _ranks_against_one_process(dev, tmp_path, config, items, DP_STEPS,
+                               DP_RTOL, 600)
+
+
+def _ranks_against_one_process(dev, tmp_path, config, items, steps: int,
+                               rtol: float, timeout: float):
+    from tandem_tpu_torch.parallel.dryrun import (run_ranks, train_rank,
+                                                  train_steps)
+    from tandem_tpu_torch.train import trainer as pt
     batch = {k: items[k] for k in pt.BATCH_KEYS}
-    one = train_steps(config, batch, 2, dev, world_size=2)
+    one = train_steps(config, batch, steps, dev, world_size=2)
+    torch.cuda.empty_cache()
     ranks = run_ranks(train_rank, 2, tmp_path,
-                      (config, batch, 2, "cuda:0", "gloo"), timeout=300)
+                      (config, batch, steps, "cuda:0", "gloo"),
+                      timeout=timeout)
     np.testing.assert_allclose(ranks[0]["losses"], one["losses"],
-                               rtol=5e-3)
+                               rtol=rtol)
     for n, p in ranks[0]["params"].items():
         assert torch.equal(p, ranks[1]["params"][n]), n
     for r in ranks:
-        assert r["launches"] == {"bilinear_sample": 36,
-                                 "warp_sample_grad": 36}
+        assert r["launches"] == {"bilinear_sample": 18 * steps,
+                                 "warp_sample_grad": 18 * steps}
 
 
 def test_train_cli_mesh_on_card(dev, tmp_path):
     """tandem_train TRAIN.DEVICE mesh on the card: one rank a card
     (spawned, NCCL), 2 steps at 64x96, one checkpoint, finite losses."""
-    import os
-
     from tandem_tpu_torch.cli import tandem_train
     root = os.path.join(os.path.dirname(__file__), "fixtures",
                         "replica_traj")
@@ -1741,3 +2351,36 @@ def test_train_cli_mesh_on_card(dev, tmp_path):
         "0", "TRAIN.DEVICE", "mesh"]))
     assert res["steps"] == 2 and np.isfinite(res["losses"]).all()
     assert os.listdir(tmp_path / "run" / "ckpt") == ["step_00000002"]
+
+
+def test_train_cli_mesh_at_640x480_on_card(dev, tmp_path):
+    """The same with the abl04 config at its own 640x480, B = 2."""
+    from tandem_tpu_torch.cli import tandem_train
+    res = tandem_train.main(tandem_train.parser.parse_intermixed_args([
+        str(tmp_path / "mesh"), "--config", str(ABL04_CONFIG),
+        "DATA.ROOT_DIR", str(TRAIN_ROOT), "TRAIN.EPOCHS", "1",
+        "TRAIN.MAX_STEPS", "2", "IO.LOG_INTERVAL", "1", "TRAIN.DEVICE",
+        "mesh"]))
+    assert res["steps"] == 2 and np.isfinite(res["losses"]).all()
+    assert os.listdir(tmp_path / "mesh" / "ckpt") == ["step_00000002"]
+
+
+@pytest.mark.parametrize("depth_num", ["48,32,8", "48,4,4"])
+def test_eval_on_card(dev, tmp_path, depth_num):
+    """The port's tandem_eval CLI on tests/fixtures/replica_mini with the
+    trained 512x320 unit, tuple 0, at both architectures: each stage's
+    abs_rel within EVAL_TOL of tests/test_eval_fixture.py's reference, the
+    forward sample launched."""
+    import shutil
+
+    from tandem_tpu_torch.cli import tandem_eval
+    ckpt = tmp_path / f"trained_{depth_num.replace(',', '_')}.pkl"
+    shutil.copy(EVAL_UNIT / "model_variables.pkl", ckpt)
+    reset_counts()
+    errors = tandem_eval.main(tandem_eval.parser.parse_args([
+        "--ckpt", str(ckpt), "--data-root", str(EVAL_ROOT), "--width", "512",
+        "--height", "320", "--limit", "1", "--depth-num", depth_num]))
+    torch.cuda.synchronize()
+    require_launched(f"eval {depth_num}", read_counts(), ("bilinear_sample",))
+    for stage, ref in REF_ABS_REL[depth_num].items():
+        assert abs(errors[stage]["abs_rel"] - ref) < EVAL_TOL, (stage, errors)

@@ -113,7 +113,8 @@ def test_renders_match_jax(runs):
 
 
 def test_renders_hold_the_gt_depth(runs):
-    """The render bars of chip_smoke's dr_debug phase: the raycast hits
+    """The render bars of tests/test_torch_cuda.py::
+    test_dr_debug_example_on_card: the raycast hits
     > 0.8 of each frame's GT-depth pixels, median |error| < 2 voxels."""
     from tandem_tpu_torch.data.reader import RGBDReader
     _, _, res = runs["port"]

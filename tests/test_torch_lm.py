@@ -3,7 +3,7 @@ step and level against the loop they replace and against the JAX package,
 and the card kernel's decoupled loop (each candidate on its own, the loop's
 condition resolved afterwards from the recorded states) in plain PyTorch.
 
-Inputs are made with numpy from a seed (``chip_smoke._track_case``: a
+Inputs are made with numpy from a seed (``torch_cases._track_case``: a
 textured level image with its gradients, points with a 10% invalid and a 5%
 outlier share, candidate poses within ~1 cm / 0.6 degrees of the identity).
 Tolerances, with their reasons:
@@ -23,13 +23,13 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import _track_case
 from tandem_tpu.tracking import coarse_tracker as jct
 from tandem_tpu_torch.core.pyramid import gradients
 from tandem_tpu_torch.core.se3 import se3_exp
 from tandem_tpu_torch.ops import track_lm as tl
 from tandem_tpu_torch.ops.linalg import solve_gauss_jordan_batched
 from tandem_tpu_torch.tracking import coarse_tracker as tct
+from torch_cases import _track_case
 
 CPU = torch.device("cpu")
 H, W = 61, 83

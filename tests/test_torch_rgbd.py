@@ -219,8 +219,9 @@ def test_replica_traj_rgbd_ate(monkeypatch):
     scale, of the JAX package and of the port, both on the CPU, and the
     frames whose pose is dvo's in each (printed; run with -s). The port's
     ATE is within 1.5x the JAX package's with >= 56 frames, the bar
-    chip_smoke's rgbd phase holds the card to; it holds the card's count
-    of dvo poses to the JAX package's printed here."""
+    tests/test_torch_cuda.py::test_rgbd_on_card holds the card to; it
+    holds the card's count of dvo poses to the JAX package's printed
+    here."""
     from tandem_tpu import settings as jset
     from tandem_tpu.data import reader as jreader
     from tandem_tpu_torch import settings as tset

@@ -340,10 +340,13 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_port_imports_no_jax():
-    """The port, its probes and chip_smoke.py import nothing of JAX, flax
-    or the JAX package (the card's machine has none of them)."""
+    """The port, its probes, the card tests and their helpers
+    (tests/torch_cases.py) import nothing of JAX, flax or the JAX package
+    (the card's machine has none of them)."""
     pkg = os.path.join(REPO, "tandem_tpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")] + [
+    files = [os.path.join(REPO, "tests", f) for f in (
+        "torch_cases.py", "test_torch_cuda.py", "test_torch_casmvsnet.py",
+        "test_torch_spans.py")] + [
         os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs
         if f.endswith(".py")]
     banned = ("jax", "flax", "tandem_tpu")

@@ -20,7 +20,8 @@ def test_header_is_generated_from_the_network():
 
 
 def test_network_size():
-    """94 comparators, 165 min/max: the count chip_smoke.py's bound uses."""
+    """94 comparators, 165 min/max: the count the edge filter's bound
+    uses."""
     steps = sn.selection_steps()
     assert (len(steps), sn.min_max_count(steps)) == (94, 165)
     assert all(s.lo < s.hi < sn.N_INPUTS for s in steps)

@@ -37,6 +37,7 @@ from tandem_tpu_torch.ops import linalg as tlin
 from tandem_tpu_torch.ops.track_reduce import track_reduce
 from tandem_tpu_torch.tracking import coarse_tracker as tct
 from tests.test_coarse_tracker import CX, CY, FX, FY, H, W, render_plane
+from torch_cases import MVS_TRACK_BOUND
 
 T_ = torch.from_numpy
 FIXTURE = "tests/fixtures/replica_traj/scene0"
@@ -256,9 +257,9 @@ def test_track_reduce_plain_f64_agrees():
 
 def test_tdist_track_reduce_plain_f64_agrees():
     """The Student-t K6 in f32 against its own float64 evaluation (the
-    card's kernel is held to the same float64 in chip_smoke.py): the
-    scale's fixed point moves by rounding only. An all-invalid list sums
-    to zero."""
+    card's kernel is held to the same float64 in tests/test_torch_cuda.py):
+    the scale's fixed point moves by rounding only. An all-invalid list
+    sums to zero."""
     _, rt = _make_refs("dense")
     new_img, _ = render_plane(np.eye(4))
     pt = tpyr.build_pyramid(T_(new_img), 6)
@@ -500,16 +501,6 @@ def test_track_against_the_model():
     for errs in (gt_errors(scene, TRACK, est_t),
                  gt_errors(scene, TRACK, est_j)):
         assert max(e for e, _ in errs) < 5e-3, errs
-
-
-# The track mvs phase of chip_smoke.py: the map from TandemBackend on the
-# first two 7-view windows (trained abl04, f32), the reference at the
-# second call's next_ref_c2w (the newest keyframe of window 2), then the 8
-# frames after it. Bound: 1.5 x the worst JAX position error measured with
-# this test on the CPU (35.488 mm at the 8th frame; the error grows about
-# linearly along the 8 frames, both packages alike); chip_smoke.py
-# MVS_TRACK_BOUND holds the same value.
-MVS_TRACK_BOUND = 0.0532
 
 
 def mvs_window_args(scene, window):
