@@ -191,7 +191,7 @@ def load_program(unit_dir: str, device=None):
     import torch
 
     from ..models.cva_mvsnet import pin_f32_precision
-    from ..ops import bilinear_sample, edge_kth  # noqa: F401 (the ops)
+    from ..ops import bilinear_sample, deconv3d, edge_kth  # noqa: F401
 
     with open(os.path.join(unit_dir, PROGRAM_INFO)) as f:
         info = json.load(f)

@@ -3,10 +3,12 @@
 Plain path of ``tandem_tpu/models/cost_reg.py`` (parity target
 cva_mvsnet/models/module.py:534-600): stride-2 encoder, except stride
 (1, 2, 2) and output_padding (0, 1, 1) at the deepest level when D == 4;
-ConvTranspose3d decoder with skip additions; a 3x3x3 single-channel logit
-conv without bias. Both modules compute in their ``dtype`` (float32 or
-bfloat16) from the float32 parameters, as the JAX modules do, and take
-``train=True`` for training BatchNorm (``layers.batch_norm_train``).
+ConvTranspose3d decoder with skip additions (each decoder step adds its
+skip itself: one kernel launch a step in eval on the card,
+``ops/deconv3d.py``); a 3x3x3 single-channel logit conv without bias.
+Both modules compute in their ``dtype`` (float32 or bfloat16) from the
+float32 parameters, as the JAX modules do, and take ``train=True`` for
+training BatchNorm (``layers.batch_norm_train``).
 """
 
 from __future__ import annotations
@@ -49,9 +51,9 @@ class CostRegNet(nn.Module):
         conv2 = self.conv2(self.conv1(conv0, t), t)
         conv4 = self.conv4(self.conv3(conv2, t), t)
         x = self.conv6(self.conv5(conv4, t), t)
-        x = conv4 + self.conv7(x, t)
-        x = conv2 + self.conv9(x, t)
-        x = conv0 + self.conv11(x, t)
+        x = self.conv7(x, t, skip=conv4)
+        x = self.conv9(x, t, skip=conv2)
+        x = self.conv11(x, t, skip=conv0)
         return conv_in(self.prob, x, self.dtype)[:, 0]
 
 

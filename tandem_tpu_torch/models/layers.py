@@ -17,8 +17,9 @@ batch's statistics and updates the running ones as flax's
 Compute dtype (float32 or bfloat16, the JAX package's ``dtype``): the
 parameters stay float32 (one copy, the converted state_dict) and are cast
 to the compute dtype where they are used; convolutions run in that dtype
-(cuDNN accumulates in float32). Eval BatchNorm is the folded form of JAX
-``_EvalFoldedBN``: scale and offset computed in float32 on the (C,)
+(cuDNN accumulates in float32, and so does the eval decoder step's kernel
+on the card, ``ops/deconv3d.py``). Eval BatchNorm is the folded form of
+JAX ``_EvalFoldedBN``: scale and offset computed in float32 on the (C,)
 vectors, cast to the compute dtype, applied as ``x * inv + off``. Train
 BatchNorm computes and returns float32, as flax's does.
 """
@@ -29,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.deconv3d import deconv_bn_relu_add
 from ..parallel import collectives
 
 BN_EPS = 1e-5
@@ -130,7 +132,14 @@ class ConvBnRelu(nn.Module):
 
 
 class DeconvBnRelu(nn.Module):
-    """torch ConvTranspose3d (kernel 3, padding 1) + BatchNorm + ReLU."""
+    """torch ConvTranspose3d (kernel 3, padding 1) + BatchNorm + ReLU, and
+    the decoder's skip added last when one is given.
+
+    The eval forward on the card, where no autograd graph is recorded, is
+    one launch of the hand-written kernel ``ops/deconv3d.py`` (the
+    convolution gathered by phase, the folded BatchNorm, the ReLU and the
+    skip); training, a forward that records a graph and CPU tensors run
+    ``F.conv_transpose3d`` and the BatchNorm, ReLU and skip as torch ops."""
 
     def __init__(self, in_ch: int, out_ch: int, stride=2, output_padding=1,
                  relu: bool = True, dtype=torch.float32):
@@ -143,13 +152,25 @@ class DeconvBnRelu(nn.Module):
         self.relu = relu
         self.dtype = dtype
 
-    def forward(self, x, train: bool = False):
-        c = self.conv
-        x = F.conv_transpose3d(x.to(self.dtype), c.weight.to(self.dtype),
-                               None, c.stride, c.padding, c.output_padding)
-        x = batch_norm_train(x, self.bn) if train else \
-            apply_bn(x, self.bn, self.dtype)
-        return F.relu(x) if self.relu else x
+    def forward(self, x, train: bool = False, skip=None):
+        c, dt = self.conv, self.dtype
+        if not train and x.is_cuda and not _records_graph(
+                x, skip, c.weight, self.bn.weight, self.bn.bias):
+            inv, off = fold_bn(self.bn, dt)
+            return deconv_bn_relu_add(x.to(dt), c.weight.to(dt), inv, off,
+                                      skip, c.stride, self.relu)
+        x = F.conv_transpose3d(x.to(dt), c.weight.to(dt), None, c.stride,
+                               c.padding, c.output_padding)
+        x = batch_norm_train(x, self.bn) if train else apply_bn(x, self.bn,
+                                                                dt)
+        x = F.relu(x) if self.relu else x
+        return x if skip is None else skip + x
+
+
+def _records_graph(*tensors) -> bool:
+    """Whether autograd records a graph of an op on ``tensors``."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def upsample_nearest_2x(x):

@@ -49,6 +49,7 @@ SIGNATURES = {
     "tandem_tsdf_integrate": [ctypes.c_char_p, _c_ptr],
     "tandem_tsdf_splat": [ctypes.c_char_p, _c_ptr],
     "tandem_tsdf_fill_holes": [ctypes.c_char_p, _c_ptr],
+    "tandem_deconv_bn_relu_add": [ctypes.c_char_p, _c_ptr],
     # ... and an int it sets to the number of kernels it launched
     "tandem_edge_filter": [ctypes.c_char_p, ctypes.POINTER(_c_int), _c_ptr],
     # T, aff, B, then the level (ops/track_reduce.level_args)

@@ -32,9 +32,10 @@ forward and the edge filter by replaying a CUDA graph of them
 (``GraphedStage3``): one graph launch in place of ~1,300 eager ones a
 keyframe, the same kernels in the same order on the same inputs. The
 wrappers' counts ``warp_sample.launches``, ``warp_variance.launches``,
-``edge_filter.calls`` and ``edge_filter.launches`` count where the kernels
-launch: a capture launches none and adds nothing, each replay adds what
-the capture recorded.
+``deconv_bn_relu_add.launches``, ``edge_filter.calls`` and
+``edge_filter.launches`` count where the kernels launch: a capture
+launches none and adds nothing, each replay adds what the capture
+recorded.
 
 Spans (``utils/timer.py``; the backend hands the runner its Timer):
 ``mvsnet_pack``, ``mvsnet_upload`` and ``mvsnet_dispatch`` (the enqueue of
@@ -43,8 +44,10 @@ graph's inputs, its replay and the copies of its outputs) on the host,
 ``mvsnet`` on the runner's stream around them, and ``mvsnet_result``.
 Counters, on the card: ``mvsnet_graph_captures``, 1 a capture, and
 ``mvsnet_graph_replays``, 1 a call a graph served and 0 a call that ran
-eagerly; and ``warp_variance.launches``, the variance kernel's launches
-in a call that launches it (3 stages x the source views).
+eagerly; ``warp_variance.launches``, the variance kernel's launches
+in a call that launches it (3 stages x the source views); and
+``deconv.launches``, the decoder-step kernel's launches in a call that
+launches it (3 stages x 3 steps).
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
 from ..models.edge_filter import filter_edges
 from ..native_bridge import bgr_pack_u8
 from ..ops.bilinear_sample import warp_sample, warp_variance
+from ..ops.deconv3d import deconv_bn_relu_add
 from ..ops.edge_kth import edge_filter
 from ..utils.timer import Timer
 
@@ -157,6 +161,7 @@ class MvsnetRunner:
         """The stage-3 forward on the packed inputs: (filtered depth,
         filtered confidence, depth, confidence), each (1, H, W)."""
         variance_launches = warp_variance.launches
+        deconv_launches = deconv_bn_relu_add.launches
         with torch.no_grad():
             with self.timer.span("mvsnet_upload"):
                 inputs = self._device_inputs(image, Ks, c2w, depth_min,
@@ -172,6 +177,9 @@ class MvsnetRunner:
         if warp_variance.launches != variance_launches:
             self.timer.count("warp_variance.launches",
                              warp_variance.launches - variance_launches)
+        if deconv_bn_relu_add.launches != deconv_launches:
+            self.timer.count("deconv.launches",
+                             deconv_bn_relu_add.launches - deconv_launches)
         return outputs
 
     def _device_inputs(self, image, Ks, c2w, depth_min, depth_max,
@@ -281,7 +289,8 @@ class GraphedStage3:
 
 # The wrappers' counts that the stage-3 forward moves: (function, attribute)
 _COUNTS = ((warp_sample, "launches"), (warp_variance, "launches"),
-           (edge_filter, "launches"), (edge_filter, "calls"))
+           (deconv_bn_relu_add, "launches"), (edge_filter, "launches"),
+           (edge_filter, "calls"))
 
 
 def _read_counts() -> list:

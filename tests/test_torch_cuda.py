@@ -13,6 +13,8 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+import json
 import os
 
 import numpy as np
@@ -20,7 +22,7 @@ import pytest
 import torch
 
 from tandem_tpu_torch.models.edge_filter import depth_filter_edges
-from tandem_tpu_torch.models.layers import DeconvBnRelu
+from tandem_tpu_torch.models.layers import DeconvBnRelu, apply_bn, fold_bn
 from tandem_tpu_torch.ops.bilinear_index import (bilinear_index,
                                                  bilinear_index_plain)
 from tandem_tpu_torch.ops.corner_blend import corner_blend, corner_blend_plain
@@ -30,7 +32,7 @@ from tandem_tpu_torch.ops.edge_kth import (KERNELS_PER_CALL, MAX_BATCH,
 from tandem_tpu_torch.ops.bilinear_sample import pack_corners
 from tandem_tpu_torch.ops.row_gather import row_gather, row_gather_plain
 from torch_cases import (ABL04_CONFIG, BF16_STEPS, BF16_TOL, CURVE_STEPS,
-                         DEMO_FRAMES, DP_RTOL, DP_SIZE, DP_STEPS, DP_TUPLES,
+                         DECONV_CONFIGS, DEMO_FRAMES, DP_RTOL, DP_SIZE, DP_STEPS, DP_TUPLES,
                          EVAL_ROOT, EVAL_TOL, EVAL_UNIT, FIXTURE, GOLDEN_TOL,
                          GT_TRACK_BOUND, LM_AFF_TOL, LM_POSE_PX,
                          MVS_TRACK_BOUND, N_KEYFRAMES, REF_ABS_REL, REPO,
@@ -45,10 +47,10 @@ from torch_cases import (ABL04_CONFIG, BF16_STEPS, BF16_TOL, CURVE_STEPS,
                          _recorded_step, _require_step_launches, _rgbd_run,
                          _runner_outputs, _runtime_frames, _slam_run,
                          _track_case, _track_loop, _track_shapes, _train_cli,
-                         _warp_positions, edge_calls, golden_window,
-                         load_runner, read_counts, require_edge_filter,
+                         _warp_positions, decoder_steps, edge_calls,
+                         golden_window, load_runner, read_counts, require_edge_filter,
                          require_launched, require_not_launched, reset_counts,
-                         write_runtime_sequence)
+                         step_inputs, write_runtime_sequence)
 
 pytestmark = pytest.mark.cuda
 # cuBLAS reads its workspace size once, at its first use: set here, when
@@ -705,6 +707,7 @@ def test_graphed_runner_equals_eager_on_card(dev, dtype, monkeypatch):
     from tandem_tpu_torch.models.convert import state_dict_to_flax
     from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet, Stage3Forward
     from tandem_tpu_torch.ops.bilinear_sample import warp_sample
+    from tandem_tpu_torch.ops.deconv3d import deconv_bn_relu_add
     from tandem_tpu_torch.pipeline.mvsnet_runner import (GraphedStage3,
                                                          MvsnetRunner)
     from tandem_tpu_torch.utils import timer as tm
@@ -735,12 +738,13 @@ def test_graphed_runner_equals_eager_on_card(dev, dtype, monkeypatch):
             poses.append(pose)
         dmin, dmax = 0.4 + 0.1 * n, 5.0 + n
         launches = (warp_sample.launches, edge_filter.calls,
-                    edge_filter.launches)
+                    edge_filter.launches, deconv_bn_relu_add.launches)
         runner.call_async(bgrs, poses, K, dmin, dmax, discard)
         got = runner.get_result(device=True)
         launched = (warp_sample.launches - launches[0],
                     edge_filter.calls - launches[1],
-                    edge_filter.launches - launches[2])
+                    edge_filter.launches - launches[2],
+                    deconv_bn_relu_add.launches - launches[3])
         with torch.no_grad():
             want = eager(*runner._device_inputs(
                 *runner.pack_inputs(bgrs, poses, K), dmin, dmax, discard))
@@ -752,7 +756,7 @@ def test_graphed_runner_equals_eager_on_card(dev, dtype, monkeypatch):
     kept = [{k: v.clone() for k, v in got.items()} for got, _ in runs[:2]]
     later = [call(n, 20.0) for n in range(3, 5)]
     assert [launched for _, launched in runs + later] == [
-        (3 * (V - 1), 1, KERNELS_PER_CALL)] * 5
+        (3 * (V - 1), 1, KERNELS_PER_CALL, 9)] * 5
     torch.cuda.synchronize()
     for (got, _), want in zip(runs, kept):
         for name in names:
@@ -766,6 +770,7 @@ def test_graphed_runner_equals_eager_on_card(dev, dtype, monkeypatch):
     assert samples.count(("mvsnet_graph_captures", 1)) == 2
     assert [v for n, v in samples if n == "mvsnet_graph_replays"] == [
         0, 1, 1, 0, 1]
+    assert [v for n, v in samples if n == "deconv.launches"] == [9] * 5
 
 
 def test_deconv_bf16_matches_f32_cast_down(dev):
@@ -789,6 +794,183 @@ def test_deconv_bf16_matches_f32_cast_down(dev):
     assert out.dtype == torch.bfloat16 and out.shape == (1, 16, 4, 60, 80)
     err = (out.float() - ref.bfloat16().float()).abs().max()
     assert err <= 2 * 2.0 ** -8 * ref.abs().max()
+
+
+DECONV_CASES = [(c, s, n) for c in DECONV_CONFIGS
+                for s in ("stage1", "stage2", "stage3")
+                for n in ("conv7", "conv9", "conv11")]
+# Shapes off the main path, (Ci, Co, D, H, W) of the input and the stride:
+# odd W (a thread's second input cell outside the input), D = 1, output
+# channels not a multiple of 4; each in both dtypes, with and without the
+# skip.
+DECONV_EDGES = [((64, 32, 6, 15, 27), (2, 2, 2)),
+                ((64, 32, 1, 15, 21), (1, 2, 2)),
+                ((32, 16, 1, 9, 33), (2, 2, 2)),
+                ((16, 8, 3, 7, 130), (2, 2, 2)),
+                ((16, 10, 2, 5, 9), (1, 2, 2))]
+DECONV_EDGE_IDS = {
+    f"{dt}-{'x'.join(map(str, shape))}-s{''.join(map(str, stride))}":
+        (dt, shape, stride)
+    for shape, stride in DECONV_EDGES for dt in ("float32", "bfloat16")}
+DECONV_EDGE_CASES = [("edge", i, skip) for i in DECONV_EDGE_IDS
+                     for skip in ("skip", "noskip")]
+
+
+def _seeded_bn(model):
+    """Draw ``model``'s BatchNorm statistics and affine parameters away from
+    their initial values (so that the folded BatchNorm is not 1 and 0)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.running_mean.uniform_(-0.2, 0.2)
+                m.running_var.uniform_(0.3, 2.0)
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.2, 0.2)
+    return model
+
+
+@functools.lru_cache(maxsize=1)
+def _deconv_model(config: str):
+    """The configuration's CvaMVSNet on the card: the trained unit's
+    weights, or seeded weights with seeded BatchNorm."""
+    from tandem_tpu_torch.models.convert import (flax_to_state_dict,
+                                                 load_variables)
+    from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet
+    kind, dtype, _, depth_num = DECONV_CONFIGS[config]
+    dtype = getattr(torch, dtype)
+    if kind == "unit":
+        with open(UNIT / "model_config.json") as f:
+            cfg = json.load(f)
+        model = CvaMVSNet(**cfg, dtype=dtype)
+        model.load_state_dict(flax_to_state_dict(
+            load_variables(UNIT / "model_variables.pkl"),
+            view_aggregation=model.view_aggregation))
+    else:
+        torch.manual_seed(19)
+        model = _seeded_bn(CvaMVSNet(depth_num=depth_num,
+                                     view_aggregation=False, dtype=dtype))
+    return model.cuda().eval()
+
+
+def _deconv_case(dev, config, stage, name):
+    """(layer, x, skip) of a card test case: a decoder layer of the
+    configuration's model at its main-path step, with seeded inputs at the
+    step's shape (``decoder_steps``: recorded from the model); or, for an
+    ``edge`` case, a seeded ``DeconvBnRelu`` at an edge shape."""
+    if config != "edge":
+        model = _deconv_model(config)
+        step = {st[:2]: st for st in decoder_steps(
+            model, DECONV_CONFIGS[config][2])}[(stage, name)]
+        x, _, _, _, skip = step_inputs(step, model.dtype, dev,
+                                       seed=len(stage + name))
+        return getattr(model.cost_regularization_net[stage], name), x, skip
+    dtype, shape, stride = DECONV_EDGE_IDS[stage]
+    dtype = getattr(torch, dtype)
+    Ci, Co, D, H, W = shape
+    torch.manual_seed(sum(shape))
+    layer = _seeded_bn(DeconvBnRelu(
+        Ci, Co, stride=stride, output_padding=tuple(s - 1 for s in stride),
+        dtype=dtype)).to(dev).eval()
+    step = ("edge", "edge", Ci, Co, (D, H, W), stride)
+    x, _, _, _, skip = step_inputs(step, dtype, dev, seed=sum(shape),
+                                   skip=name == "skip")
+    return layer, torch.cat([x, 2 * x]), None if skip is None else \
+        torch.cat([skip, skip.flip(-1)])
+
+
+def _eager_decoder_step(layer, x, skip, conv=None):
+    """The decoder step as the eager path runs it (cuDNN's transposed
+    convolution, the folded BatchNorm, the ReLU and the skip), or, given
+    ``conv``, its epilogue on that convolution."""
+    c, dt = layer.conv, layer.dtype
+    if conv is None:
+        conv = torch.nn.functional.conv_transpose3d(
+            x, c.weight.to(dt), None, c.stride, c.padding, c.output_padding)
+    y = torch.nn.functional.relu(apply_bn(conv, layer.bn, dt))
+    return y if skip is None else skip + y
+
+
+@pytest.mark.parametrize("config,stage,name",
+                         DECONV_CASES + DECONV_EDGE_CASES)
+def test_deconv_kernel_equals_eager_step(dev, config, stage, name):
+    """Each decoder step of the three configurations at its main-path shape
+    (odd H at the deepest level of stage 1, D = 1 -> 2 and stride (1, 2, 2)
+    in the others), and the edge shapes in batches of 2 (odd W, D = 1, Co
+    not a multiple of 4, no skip): the layer's one launch of the kernel
+    against the eager step. float32 within rtol 1e-5, atol 1e-6; bfloat16
+    each output equal to the eager epilogue of the eager convolution's
+    value or of one of its bfloat16 neighbours (cuDNN's bfloat16 sum and
+    the kernel's float32 one round apart), and within two bfloat16 ulps of
+    the larger of the eager output and the scaled convolution: a one-ulp
+    step of the convolution can move the rounded product by two ulps where
+    the product sits on a rounding tie (abl04's stage-2 conv9: 1.1640625
+    or 1.171875 times 0.3125 rounds to 0.36328125 or 0.3671875). A second
+    call gives the same bits."""
+    layer, x, skip = _deconv_case(dev, config, stage, name)
+    dtype = layer.dtype
+    reset_counts()
+    with torch.no_grad():
+        got = layer(x, skip=skip)
+        again = layer(x, skip=skip)
+        want = _eager_decoder_step(layer, x, skip)
+    torch.cuda.synchronize()
+    assert read_counts()["deconv"] == 2
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        return
+    inf = torch.full_like(want, float("inf"))
+    c, dt = layer.conv, layer.dtype
+    with torch.no_grad():
+        conv = torch.nn.functional.conv_transpose3d(
+            x, c.weight.to(dt), None, c.stride, c.padding, c.output_padding)
+        hit = torch.zeros_like(got, dtype=torch.bool)
+        for cand in (torch.nextafter(conv, -inf), conv,
+                     torch.nextafter(conv, inf)):
+            hit |= got == _eager_decoder_step(layer, x, skip, cand)
+        assert hit.all()
+        scaled = conv * fold_bn(layer.bn, dt)[0].reshape(1, -1, 1, 1, 1)
+        big = torch.maximum(want.abs(), scaled.abs())
+        ulp = torch.nextafter(big, inf).float() - big.float()
+        assert ((got.float() - want.float()).abs() <= 2 * ulp).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_golden_forward_runs_the_deconv_kernel(dev, dtype, monkeypatch):
+    """The trained unit's golden forward on the card launches the decoder
+    kernel 9 times (3 stages x 3 steps) and never calls conv_transpose3d;
+    a training forward (train=True) and an eval forward that records a
+    graph keep conv_transpose3d and launch no decoder kernel."""
+    import torch.nn.functional as F
+    calls = []
+    real = F.conv_transpose3d
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv_transpose3d", counted)
+    runner, pack = load_runner(dev, dtype)
+    reset_counts()
+    _golden_forward(runner, pack, dev)
+    torch.cuda.synchronize()
+    assert read_counts()["deconv"] == 9 and calls == []
+    net = runner.model.cost_regularization_net["stage3"]
+    x = torch.rand((1, 8, 4, 32, 48), device=dev)
+    for train in (True, False):
+        reset_counts()
+        with torch.enable_grad():
+            net(x, train)
+        assert read_counts()["deconv"] == 0 and len(calls) == 3
+        calls.clear()
+    net.requires_grad_(False)
+    try:
+        with torch.enable_grad():
+            net(x)
+    finally:
+        net.requires_grad_(True)
+    assert read_counts()["deconv"] == 3 and calls == []
 
 
 def test_probes_run_on_card(dev):

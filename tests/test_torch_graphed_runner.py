@@ -17,6 +17,7 @@ import torch
 from tandem_tpu_torch.models.convert import state_dict_to_flax
 from tandem_tpu_torch.models.cva_mvsnet import CvaMVSNet, Stage3Forward
 from tandem_tpu_torch.ops.bilinear_sample import warp_sample
+from tandem_tpu_torch.ops.deconv3d import deconv_bn_relu_add
 from tandem_tpu_torch.ops.edge_kth import edge_filter
 from tandem_tpu_torch.pipeline import mvsnet_runner as mr
 from tandem_tpu_torch.utils import timer as tm
@@ -206,6 +207,38 @@ def test_captured_forward_counts_launches_at_each_replay(monkeypatch):
     captured(tensors)
     captured(tensors)
     assert counts() == (118, 208, 52)
+
+
+def test_decoder_step_launches_counted_at_each_replay_and_recorded(
+        monkeypatch, log):
+    """The decoder-step kernel's launches (9 a forward: 3 stages x 3
+    steps) are taken back after a capture and added at each replay, and
+    the runner records each call's launches under ``deconv.launches``: 9
+    for the eager call, the capture and the replay alike."""
+    class Graph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: None)
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, **kw: contextlib.nullcontext())
+    monkeypatch.setattr(deconv_bn_relu_add, "launches", 100)
+
+    def forward(image, *rest):
+        deconv_bn_relu_add.launches += 9
+        return (image.sum(1),)
+
+    tensors, pct = _inputs()
+    runner = object.__new__(mr.MvsnetRunner)
+    runner._forward = mr.GraphedStage3(forward)
+    runner.timer = tm.Timer()
+    runner._device_inputs = lambda *_: (*tensors, pct)
+    for _ in range(3):
+        mr.MvsnetRunner._run(runner, None, None, None, 0.5, 6.0, None)
+    assert deconv_bn_relu_add.launches == 127
+    assert [e.value for e in log if isinstance(e, tm.Sample)
+            and e.name == "deconv.launches"] == [9, 9, 9]
 
 
 class _RunForward:

@@ -157,6 +157,71 @@ DP_STEPS = 3
 DP_RTOL = 5e-3               # tests/test_train_learns.py:157, the JAX gate
 ABL04_CONFIG = REPO / "tandem_tpu_torch" / "configs" \
     / "abl04_fewer_depth_planes.yaml"
+# CostRegNet's decoder steps (ops/deconv3d.py) at the main path's shapes:
+# the benchmark's abl04 cell (the trained unit in bfloat16), the trained
+# unit in float32 (the golden pack) and the benchmark's CasMVSNet cell
+# (seeded weights, float32): (weights, dtype, image (H, W), planes a
+# stage).
+DECONV_CONFIGS = {
+    "abl04 bf16": ("unit", "bfloat16", (480, 640), (48, 4, 4)),
+    "trained f32": ("unit", "float32", (480, 640), (48, 4, 4)),
+    "CasMVSNet f32": ("seeded", "float32", (864, 1152), (48, 32, 8)),
+}
+
+
+def decoder_steps(model, size) -> list:
+    """Each ``DeconvBnRelu`` call of ``model``'s (a ``CvaMVSNet``) cost
+    regularisers in a forward at image ``size`` = (H, W), in call order:
+    [(stage, layer name, Ci, Co, input (D, H, W), stride)]. Recorded by
+    forward hooks on a meta copy of each stage's ``CostRegNet`` fed the
+    stage's cost volume, (1, feature channels, planes, H / scale, W /
+    scale) in the model's dtype; each call's skip must have the step's
+    output shape."""
+    import copy
+
+    import torch
+
+    from tandem_tpu_torch.models.layers import DeconvBnRelu
+    from tandem_tpu_torch.ops.deconv3d import output_shape
+    steps = []
+    for i, (stage, net) in enumerate(model.cost_regularization_net.items()):
+        def record(layer, args, kwargs, out, stage=stage):
+            x, skip, stride = args[0], kwargs["skip"], tuple(layer.conv.stride)
+            assert skip.shape == output_shape(x.shape, out.shape[1], stride)
+            steps.append((stage, names[layer], x.shape[1], out.shape[1],
+                          tuple(x.shape[2:]), stride))
+
+        net = copy.deepcopy(net).to("meta")
+        names = {m: n for n, m in net.named_children()
+                 if isinstance(m, DeconvBnRelu)}
+        hooks = [m.register_forward_hook(record, with_kwargs=True)
+                 for m in names]
+        scale = model.scale[stage]
+        net(torch.empty((1, model.feature_net.out_channels[stage],
+                         model.depth_num[i], size[0] // scale,
+                         size[1] // scale), device="meta",
+                        dtype=model.dtype))
+        for h in hooks:
+            h.remove()
+    return steps
+
+
+def step_inputs(step, dtype, device, seed: int = 0, skip: bool = True):
+    """Seeded (x, weight, inv, off, skip) of a decoder step of
+    ``decoder_steps``: x and the skip non-negative, as the ReLUs before
+    them leave them (the skip None where ``skip`` is false)."""
+    import torch
+    _, _, Ci, Co, (D, H, W), stride = step
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.relu(torch.randn((1, Ci, D, H, W), generator=g,
+                               device=device)).to(dtype)
+    w = (torch.randn((Ci, Co, 3, 3, 3), generator=g, device=device)
+         / (Ci * 27) ** 0.5).to(dtype)
+    inv = (0.5 + torch.rand((Co,), generator=g, device=device)).to(dtype)
+    off = (0.1 * torch.randn((Co,), generator=g, device=device)).to(dtype)
+    out = (1, Co, stride[0] * D, 2 * H, 2 * W)
+    s = torch.relu(torch.randn(out, generator=g, device=device)).to(dtype)
+    return x, w, inv, off, s if skip else None
 
 
 def wrappers() -> dict:
@@ -167,6 +232,7 @@ def wrappers() -> dict:
                                                       warp_sample_grad,
                                                       warp_variance)
     from tandem_tpu_torch.ops.corner_blend import corner_blend
+    from tandem_tpu_torch.ops.deconv3d import deconv_bn_relu_add
     from tandem_tpu_torch.ops.edge_kth import edge_filter, edge_kth_value
     from tandem_tpu_torch.ops.row_gather import row_gather
     from tandem_tpu_torch.ops.track_lm import lm_level
@@ -178,6 +244,7 @@ def wrappers() -> dict:
             "bilinear_sample": (warp_sample, bilinear_sample),
             "warp_sample_grad": (warp_sample_grad,),
             "warp_variance": (warp_variance,),
+            "deconv": (deconv_bn_relu_add,),
             "tsdf_integrate": (integrate,), "tsdf_splat": (splat_zbuf,),
             "tsdf_fill_holes": (_fill_holes,),
             "row_gather": (row_gather,), "track_reduce": (track_reduce,),
