@@ -2,9 +2,11 @@
 
 Copies of ``load_model_config`` and ``verify_golden`` from
 ``tandem_tpu/cli/tandem_export.py``: a unit folder holds
-``model_variables.pkl``, ``model_config.json`` (the CvaMVSNet constructor
-arguments) and optionally ``sample_inputs.npz``, a golden pack of inputs
-and the reference model's outputs. ``verify_golden`` replays the pack and
+``model_variables.pkl``, ``model_config.json`` (the model's constructor
+arguments, with the ``"architecture"`` key where the unit is not a
+CVA-MVSNet: ``models/factory.build_model`` builds it) and optionally
+``sample_inputs.npz``, a golden pack of inputs and the reference model's
+outputs. ``verify_golden`` replays the pack and
 returns the worst mean absolute error over its outputs, the reference's
 boot check (dr_mvsnet.cpp:505-521) at GOLDEN_TOL.
 """
@@ -21,8 +23,10 @@ GOLDEN_TOL = 1e-2  # dr_mvsnet_test threshold (dr_mvsnet.cpp:505-521)
 
 
 def load_model_config(unit_dir: str) -> dict:
-    """CvaMVSNet constructor kwargs of a unit; a unit without
-    model_config.json gets the training defaults."""
+    """The unit's model configuration (``models/factory.build_model``'s
+    argument: the constructor's kwargs, lists as tuples, and the
+    architecture where it names one); a unit without model_config.json
+    gets CVA-MVSNet's training defaults."""
     path = os.path.join(unit_dir, "model_config.json")
     if os.path.exists(path):
         with open(path) as f:
@@ -34,17 +38,18 @@ def load_model_config(unit_dir: str) -> dict:
 
 def verify_golden(pack_path: str, variables, device,
                   dtype=torch.float32) -> float:
-    """Replay the golden pack through a CvaMVSNet of the unit's
-    architecture in ``dtype`` on ``device``; return the worst mean absolute
-    error over the 12 outputs."""
+    """Replay the golden pack through the unit's architecture in
+    ``dtype`` on ``device``; return the worst mean absolute error over the
+    12 outputs."""
     from ..models import convert
-    from ..models.cva_mvsnet import CvaMVSNet
+    from ..models.factory import build_model
 
     pack = np.load(pack_path)
-    model = CvaMVSNet(**load_model_config(os.path.dirname(pack_path)),
-                      dtype=dtype)
+    model = build_model(load_model_config(os.path.dirname(pack_path)),
+                        dtype)
     model.load_state_dict(convert.flax_to_state_dict(
-        variables, view_aggregation=model.view_aggregation))
+        variables, view_aggregation=model.view_aggregation,
+        architecture=model.architecture))
     model = model.to(device).eval()
     image = pack["image"]
     if image.dtype == np.uint8:

@@ -110,7 +110,7 @@ def main(argv=None, device=None):
     from ..mapping.mesh import save_obj
     from ..mapping.tsdf import TsdfConfig
     from ..models.convert import load_variables
-    from ..models.cva_mvsnet import CvaMVSNet
+    from ..models.factory import build_model
     from ..pipeline.backend import TandemBackend
     from ..pipeline.full_system import (FullSystem, make_full_system_options,
                                         resolve_device)
@@ -132,8 +132,8 @@ def main(argv=None, device=None):
         pack = os.path.join(s.mvsnet_folder, "sample_inputs.npz")
         if os.path.exists(pkl):
             variables = load_variables(pkl)
-            model = CvaMVSNet(**load_model_config(s.mvsnet_folder),
-                              dtype=torch.bfloat16)
+            model = build_model(load_model_config(s.mvsnet_folder),
+                                torch.bfloat16)
             runner = MvsnetRunner(model, variables, H, W,
                                   view_num=s.dr_mvsnet_view_num, device=dev)
             # Boot-time golden self-check (FullSystem initDr,

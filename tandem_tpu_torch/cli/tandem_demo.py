@@ -54,7 +54,7 @@ def main(argv=None, device=None):
     from ..mapping.mesh import save_obj
     from ..mapping.tsdf import TsdfConfig
     from ..models.convert import load_variables
-    from ..models.cva_mvsnet import CvaMVSNet
+    from ..models.factory import build_model
     from ..pipeline.backend import TandemBackend
     from ..pipeline.camera import OpenCVCamera, ReplayCamera
     from ..pipeline.full_system import (FullSystem, make_full_system_options,
@@ -75,8 +75,8 @@ def main(argv=None, device=None):
     if s.mvsnet_folder:
         variables = load_variables(os.path.join(s.mvsnet_folder,
                                                 "model_variables.pkl"))
-        model = CvaMVSNet(**load_model_config(s.mvsnet_folder),
-                          dtype=torch.bfloat16)
+        model = build_model(load_model_config(s.mvsnet_folder),
+                            torch.bfloat16)
         runner = MvsnetRunner(model, variables, H, W,
                               view_num=s.dr_mvsnet_view_num, device=dev)
         K_mat = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)

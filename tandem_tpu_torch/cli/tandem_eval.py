@@ -58,7 +58,7 @@ parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
 
 
 def model_kwargs(args) -> dict:
-    """CvaMVSNet's architecture for the checkpoint: its model_config.json
+    """The model's architecture for the checkpoint: its model_config.json
     (in the checkpoint directory, or beside the checkpoint file) where
     there is one, with the flags given on top; else the flags or their
     defaults."""
@@ -113,7 +113,7 @@ def main(args) -> dict:
     import torch
 
     from ..data.replica import MVSDataset, make_batches, write_png
-    from ..models.cva_mvsnet import CvaMVSNet
+    from ..models.factory import build_model
     from ..train.checkpoint import load_any
     from ..train.trainer import batch_to_device, make_eval_step
 
@@ -125,10 +125,11 @@ def main(args) -> dict:
     else:
         device = torch.device("cpu")
     kwargs = model_kwargs(args)
-    model = CvaMVSNet(**kwargs, dtype=torch.bfloat16
-                      if args.dtype == "bfloat16" else torch.float32)
+    model = build_model(kwargs, torch.bfloat16
+                        if args.dtype == "bfloat16" else torch.float32)
     model.load_state_dict(load_any(
-        args.ckpt, view_aggregation=kwargs["view_aggregation"]))
+        args.ckpt, view_aggregation=model.view_aggregation,
+        architecture=model.architecture))
     model.to(device)
     eval_step = make_eval_step(model)
 

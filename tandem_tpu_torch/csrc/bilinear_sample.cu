@@ -8,7 +8,10 @@
 // And the variance cost volume's step (tandem_warp_variance): the plane
 // sweep's samples of one source view added straight into the running sum
 // and sum of squares of the cost volume, in place, with no warped volume
-// in device memory. And the plane sweep's gradient with respect to the image
+// in device memory. And the correlation cost volume's step
+// (tandem_warp_correlation): the plane sweep's samples of one source view
+// multiplied by the reference's features and averaged over the channels,
+// written as one float32 value a (plane, pixel). And the plane sweep's gradient with respect to the image
 // (tandem_warp_sample_grad, at the end of the file): the same cells, each
 // thread summing a run of one pixel's planes in registers and adding a
 // sum to the image gradient with one vector atomic a corner where the
@@ -231,6 +234,32 @@ __device__ __forceinline__ void store(const VarianceSums<T>& out, int at,
   *reinterpret_cast<V*>(out.sq + at) = round_vec<T, VEC>(q);
 }
 
+// The correlation's row of 32 samples: the reference's features at the
+// warp's first pixel (the row's layout: sample j's channels at j * C) and
+// the warp's scratch of partial sums, one a (sample, lane of VEC channels).
+template <typename T>
+struct CorrelationRow {
+  const T* ref;
+  float* partial;
+};
+
+// ... or multiplied by the reference's channels: x = the blend rounded
+// once to T (the warped value), then the VEC products x r summed in channel
+// order, ((x0 r0 + x1 r1) + x2 r2) + x3 r3, each product and sum rounded
+// once in float32, into the scratch at at / VEC (sample j, lane c / VEC).
+template <typename T, int VEC>
+__device__ __forceinline__ void store(const CorrelationRow<T>& out, int at,
+                                      const float (&a)[VEC]) {
+  const Vec<T, VEC> x = round_vec<T, VEC>(a);
+  const Vec<T, VEC> r = load<T, VEC>(out.ref + at);
+  float p = __fmul_rn(to_f32(x.v[0]), to_f32(r.v[0]));
+#pragma unroll
+  for (int e = 1; e < VEC; ++e) {
+    p = __fadd_rn(p, __fmul_rn(to_f32(x.v[e]), to_f32(r.v[e])));
+  }
+  out.partial[at / VEC] = p;
+}
+
 // Channels [c, c + VEC) of one sample: the four corners (zero outside the
 // image), blended in f32, then stored at ``at`` of out (``store``).
 template <typename T, int VEC, typename Out>
@@ -440,6 +469,54 @@ __global__ void __launch_bounds__(kWarps * 32)
     sample_row<T, VEC>(image, t.cells[k], t.n, t.lane, g.H, g.W, g.C,
                        VarianceSums<T>{sums.sum + plane, sums.sq + plane,
                                        sums.first});
+  }
+}
+
+// The correlation cost volume's step for one source view: the plane
+// sweep's samples, as warp_sample_kernel computes them, multiplied by the
+// reference's features at the same pixel and averaged over the C channels,
+// out(d, p) = (1 / C) sum_c ref(c, p) x(c, d, p): one float32 value a
+// sample. The eager form writes the view's (D, H, W, C) warped volume and
+// reads it back with the reference for the product and the channel sum (382
+// MB a view at CasMVSNet's stage 1 of 1152 x 864); here only the (D, H, W)
+// similarity is written. A sample's C channels lie on L = C / VEC lanes
+// (sample_row's rounds): each lane sums its VEC products (``store``) into a
+// per-warp scratch in shared memory (32 x L floats), and after the plane's
+// rounds lane j sums sample j's L partials in lane order and divides by C.
+// The channel order of the sum is therefore fixed by VEC:
+//   (((p_0 + p_1) + p_2) + ... + p_{L-1}) / C, p_l = the VEC products of
+// channels [l VEC, (l + 1) VEC) summed in order,
+// which ops/bilinear_sample.warp_correlation_plain repeats in torch ops.
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    warp_correlation_kernel(const T* __restrict__ img, Grid g,
+                            const float* __restrict__ mat,
+                            const float* __restrict__ depth, float min_depth,
+                            const T* __restrict__ ref,
+                            float* __restrict__ out) {
+  extern __shared__ float scratch[];  // kWarps x 32 x L partial sums
+  SweepTile t;
+  if (!sweep_tile<T>(g, mat, depth, min_depth, t)) return;
+  const int L = g.C / VEC;
+  float* partial = scratch + (threadIdx.x >> 5) * 32 * L;
+  const T* image = img + t.b * g.H * g.W * static_cast<int64_t>(g.C);
+  const int64_t pix0 = t.pix - t.lane;
+  const CorrelationRow<T> row{ref + (t.b * t.plane_size + pix0) * g.C,
+                              partial};
+  float* dst = out + (t.b * g.D + t.d0) * t.plane_size + pix0;
+  const float channels = static_cast<float>(g.C);
+#pragma unroll
+  for (int k = 0; k < kMaxPlanes; ++k) {
+    if (k >= t.np) break;  // uniform
+    sample_row<T, VEC>(image, t.cells[k], t.n, t.lane, g.H, g.W, g.C, row);
+    __syncwarp();
+    if (t.lane < t.n) {
+      const float* mine = partial + t.lane * L;
+      float s = mine[0];
+      for (int l = 1; l < L; ++l) s = __fadd_rn(s, mine[l]);
+      dst[k * t.plane_size + t.lane] = __fdiv_rn(s, channels);
+    }
+    __syncwarp();  // the next plane's rounds rewrite the scratch
   }
 }
 
@@ -737,7 +814,8 @@ dim3 grid_of(const Grid& g, int64_t planes) {
 
 // The launches, as functors on the runtime (type, vector width). The
 // plane sweep's output is the warped volume (a pointer) or the variance's
-// running sums (VarianceOut), and launch_sweep picks the kernel by it.
+// running sums (VarianceOut) or the correlation's similarity
+// (CorrelationOut), and launch_sweep picks the kernel by it.
 struct VarianceOut {
   void* sum;
   void* sq;
@@ -760,6 +838,23 @@ void launch_sweep(dim3 grid, cudaStream_t stream, const T* img, Grid g,
       img, g, mat, depth, min_depth,
       VarianceSums<T>{static_cast<T*>(out.sum), static_cast<T*>(out.sq),
                       out.first});
+}
+
+// The correlation's output: the reference's features (the image's layout
+// and type) and the float32 (B, D, H, W) similarity.
+struct CorrelationOut {
+  const void* ref;
+  float* out;
+};
+
+template <typename T, int VEC>
+void launch_sweep(dim3 grid, cudaStream_t stream, const T* img, Grid g,
+                  const float* mat, const float* depth, float min_depth,
+                  const CorrelationOut& out) {
+  const size_t scratch = sizeof(float) * kWarps * 32 * (g.C / VEC);
+  warp_correlation_kernel<T, VEC><<<grid, kWarps * 32, scratch, stream>>>(
+      img, g, mat, depth, min_depth, static_cast<const T*>(out.ref),
+      out.out);
 }
 
 template <typename Out>
@@ -927,6 +1022,26 @@ extern "C" int tandem_warp_sample(const SweepArgs* a, cudaStream_t stream) {
 extern "C" int tandem_warp_variance(const VarianceArgs* a,
                                     cudaStream_t stream) {
   return sweep(&a->sweep, VarianceOut{a->sweep.out, a->sq, a->first != 0},
+               stream);
+}
+
+struct CorrelationArgs {
+  SweepArgs sweep;     // its out: the float32 (B, D, H, W) similarity
+  const void* ref;     // (B, H, W, C) of img's type: the reference's
+                       // features, aligned to vec too
+};
+static_assert(sizeof(CorrelationArgs) == 88, "CorrelationArgs layout");
+
+// The correlation step of one source view: all arrays contiguous. A
+// sample's channels take at most 32 lanes (C / vec <= 32). Launches on
+// ``stream`` without synchronising; returns cudaGetLastError().
+extern "C" int tandem_warp_correlation(const CorrelationArgs* a,
+                                       cudaStream_t stream) {
+  if (a->sweep.vec < 1 || a->sweep.C / a->sweep.vec > 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return sweep(&a->sweep,
+               CorrelationOut{a->ref, static_cast<float*>(a->sweep.out)},
                stream);
 }
 

@@ -16,6 +16,15 @@ forward converter):
 
 The 640x480 unit ships with BN folded into the convs (bn.weight = 1,
 mean = 0); it converts like any other unit.
+
+TransMVSNet (``architecture="transmvsnet"``) shares the FeatureNet and the
+U-Nets' paths (its U-Nets take one input channel) and adds ``arf_<stage>``
+(``offset``, ``mask`` and ``conv``), ``fmt`` (``self_<i>`` and
+``cross_<i>``: Dense ``q``, ``k``, ``v``, ``merge``, ``mlp0``, ``mlp1``,
+LayerNorm ``norm1``, ``norm2``), ``pathway`` (``reduce_<stage>``,
+``smooth_<stage>``) and ``view_weight`` (``conv0``, ``conv1`` with
+BatchNorm, ``conv2`` with bias). Dense (I, O) -> Linear (O, I); LayerNorm
+scale/bias -> weight/bias.
 """
 
 from __future__ import annotations
@@ -56,12 +65,19 @@ _LAYOUTS = {
     "deconv3d": (lambda w: np.transpose(w[::-1, ::-1, ::-1], (3, 4, 0, 1, 2)),
                  lambda w: np.transpose(w, (2, 3, 4, 0, 1))[::-1, ::-1, ::-1]),
     "vector": (lambda w: w, lambda w: w),
+    # Dense (I, O) -> Linear (O, I)
+    "dense": (lambda w: np.transpose(w), lambda w: np.transpose(w)),
 }
+FMT_LINEAR = ("q", "k", "v", "merge", "mlp0", "mlp1")
 
 
-def _entries(view_aggregation: bool):
+def _entries(view_aggregation: bool, architecture: str = "cva_mvsnet",
+             fmt_layers: int = 0):
     """(state_dict key, flax path, layout) of every converted tensor; the
     path starts with "params" or "batch_stats"."""
+    if architecture not in ("cva_mvsnet", "transmvsnet"):
+        raise ValueError(f"architecture {architecture!r}: 'cva_mvsnet' or "
+                         "'transmvsnet'")
     out = []
 
     def bn(dst: str, p: tuple, s: tuple):
@@ -102,7 +118,9 @@ def _entries(view_aggregation: bool):
         out.append((f"{dst}.prob.weight", ("params", src, "prob", "kernel"),
                     "conv3d"))
 
-    if view_aggregation:
+    if architecture == "transmvsnet":
+        _transmvsnet_entries(out, conv_bn, fmt_layers)
+    elif view_aggregation:
         # Sequential(0 Conv3d, 1 BN, 2 ReLU, 3 Conv3d, 4 BN, 5 ReLU)
         for s in STAGES:
             dst, src = f"volume_gates.{s}", f"volume_gate_{s}"
@@ -116,12 +134,51 @@ def _entries(view_aggregation: bool):
     return out
 
 
-def flax_to_state_dict(variables: dict, view_aggregation: bool = True
+def _transmvsnet_entries(out: list, conv_bn, fmt_layers: int):
+    """TransMVSNet's own tensors (the module's docstring), with
+    ``fmt_layers`` encoder layers."""
+    for s in STAGES:
+        for part in ("offset", "mask", "conv"):
+            out.append((f"arf.{s}.{part}.weight",
+                        ("params", f"arf_{s}", part, "kernel"), "conv2d"))
+        for part in ("offset", "mask"):
+            out.append((f"arf.{s}.{part}.bias",
+                        ("params", f"arf_{s}", part, "bias"), "vector"))
+    for i in range(fmt_layers):
+        name = f"{('self', 'cross')[i % 2]}_{i // 2}"
+        for lin in FMT_LINEAR:
+            out.append((f"fmt.layers.{i}.{lin}.weight",
+                        ("params", "fmt", name, lin, "kernel"), "dense"))
+        for norm in ("norm1", "norm2"):
+            out.append((f"fmt.layers.{i}.{norm}.weight",
+                        ("params", "fmt", name, norm, "scale"), "vector"))
+            out.append((f"fmt.layers.{i}.{norm}.bias",
+                        ("params", "fmt", name, norm, "bias"), "vector"))
+    for s in ("stage2", "stage3"):
+        for part in ("reduce", "smooth"):
+            out.append((f"pathway.{part}.{s}.weight",
+                        ("params", "pathway", f"{part}_{s}", "kernel"),
+                        "conv2d"))
+    for c in ("conv0", "conv1"):
+        conv_bn(f"view_weight.{c}", ("view_weight", c), "conv3d")
+    out.append(("view_weight.conv2.weight",
+                ("params", "view_weight", "conv2", "kernel"), "conv3d"))
+    out.append(("view_weight.conv2.bias",
+                ("params", "view_weight", "conv2", "bias"), "vector"))
+
+
+def flax_to_state_dict(variables: dict, view_aggregation: bool = True,
+                       architecture: str = "cva_mvsnet"
                        ) -> Dict[str, torch.Tensor]:
     """:param variables: {'params': ..., 'batch_stats': ...} numpy tree.
-    :return: state_dict of CPU float32 tensors for ``CvaMVSNet``."""
+    :param architecture: the model's (``CvaMVSNet.architecture`` or
+        ``TransMVSNet.architecture``); TransMVSNet has no view aggregation
+    :return: state_dict of CPU float32 tensors for the model."""
     sd: Dict[str, torch.Tensor] = {}
-    for key, path, layout in _entries(view_aggregation):
+    layers = (len(variables["params"]["fmt"])
+              if architecture == "transmvsnet" else 0)
+    for key, path, layout in _entries(view_aggregation, architecture,
+                                      layers):
         leaf = variables
         for name in path:
             leaf = leaf[name]

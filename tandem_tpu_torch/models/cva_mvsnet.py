@@ -76,6 +76,8 @@ def pin_f32_precision():
 
 
 class CvaMVSNet(nn.Module):
+    architecture = "cva_mvsnet"
+
     def __init__(self, depth_num: Tuple[int, ...] = (48, 32, 8),
                  depth_interval_ratio: Tuple[float, ...] = (1.0, 0.5, 0.25),
                  feature_net_base_channels: int = 8,
@@ -157,18 +159,7 @@ class CvaMVSNet(nn.Module):
                 depth_samples, self.cost_regularization_net[stage], gate,
                 train)
 
-        # Edge filtering runs AFTER all stages (cva_mvsnet.py:165-177).
-        result = {}
-        for stage in STAGES:
-            depth, conf = outputs[stage]
-            if depth_filter_discard_percentage is not None:
-                filtered = filter_edges(
-                    depth, depth_filter_discard_percentage, conf)
-                result[stage] = StageOutputs(filtered.depth, filtered.conf,
-                                             depth, conf)
-            else:
-                result[stage] = StageOutputs(depth, conf, depth, conf)
-        return Outputs(**result)
+        return filtered_outputs(outputs, depth_filter_discard_percentage)
 
     def _depth_prediction(self, features, K, cam_to_world, depth_in,
                           cost_reg: CostRegNet, gate: Optional[VolumeGate],
@@ -246,18 +237,41 @@ class CvaMVSNet(nn.Module):
         logits, softmax over D, expected depth, and the confidence as the
         sum of 4 adjacent plane probabilities at the expected index,
         truncated like the reference's ``.long()``."""
-        D = depth_in.shape[1]
         logits = cost_reg(volume.permute(0, 4, 1, 2, 3).contiguous(), train)
-        prob = torch.softmax(logits.float(), dim=1)          # (B, D, H, W)
-        depth = torch.sum(prob * depth_in.float(), dim=1)
-        prob_pad = nn.functional.pad(prob, (0, 0, 0, 0, 1, 2))
-        prob4 = (prob_pad[:, 0:D] + prob_pad[:, 1:D + 1]
-                 + prob_pad[:, 2:D + 2] + prob_pad[:, 3:D + 3])
-        steps = torch.arange(D, dtype=torch.float32, device=prob.device)
-        idx_f = torch.sum(prob * steps[None, :, None, None], dim=1)
-        idx = torch.clamp(idx_f.long(), 0, D - 1)
-        conf = torch.gather(prob4, 1, idx[:, None])[:, 0]
-        return depth, conf.detach()
+        return regress_depth(torch.softmax(logits.float(), dim=1), depth_in)
+
+
+def regress_depth(prob, depth_in):
+    """The plane probabilities (B, D, H, W) -> the expected depth and the
+    confidence: the sum of 4 adjacent plane probabilities at the expected
+    index, truncated like the reference's ``.long()`` (module.py:1110-1133).
+    """
+    D = depth_in.shape[1]
+    depth = torch.sum(prob * depth_in.float(), dim=1)
+    prob_pad = nn.functional.pad(prob, (0, 0, 0, 0, 1, 2))
+    prob4 = (prob_pad[:, 0:D] + prob_pad[:, 1:D + 1]
+             + prob_pad[:, 2:D + 2] + prob_pad[:, 3:D + 3])
+    steps = torch.arange(D, dtype=torch.float32, device=prob.device)
+    idx_f = torch.sum(prob * steps[None, :, None, None], dim=1)
+    idx = torch.clamp(idx_f.long(), 0, D - 1)
+    conf = torch.gather(prob4, 1, idx[:, None])[:, 0]
+    return depth, conf.detach()
+
+
+def filtered_outputs(outputs, discard_percentage) -> Outputs:
+    """{stage: (depth, confidence)} -> ``Outputs``, each stage's pair
+    edge-filtered where a percentage is given. The filter runs after all
+    stages (cva_mvsnet.py:165-177)."""
+    result = {}
+    for stage in STAGES:
+        depth, conf = outputs[stage]
+        if discard_percentage is not None:
+            filtered = filter_edges(depth, discard_percentage, conf)
+            result[stage] = StageOutputs(filtered.depth, filtered.conf,
+                                         depth, conf)
+        else:
+            result[stage] = StageOutputs(depth, conf, depth, conf)
+    return Outputs(**result)
 
 
 class Stage3Forward(nn.Module):

@@ -202,3 +202,45 @@ def interpolate_bilinear(x, out_h: int, out_w: int):
     top = r0[:, :, x0] * (1 - wx) + r0[:, :, x1] * wx
     bot = r1[:, :, x0] * (1 - wx) + r1[:, :, x1] * wx
     return top * (1 - wy) + bot * wy
+
+
+class ModulatedDeformConv3x3(nn.Module):
+    """A modulated deformable 3x3 convolution (DCNv2) without bias, C_in ->
+    C_out, stride 1: y(p) = sum_k w_k m_k(p) f(p + p_k + dp_k(p)), where the
+    offsets dp (18 channels, (dy, dx) of tap k = 3 ky + kx at 2k, 2k + 1)
+    come from a 3x3 convolution with bias, the modulation m (9 channels) is
+    the sigmoid of another, and f is sampled bilinearly with zeros outside
+    the image. In torch ops: a tap at a time, ``grid_sample`` (corners
+    aligned) on float32 positions, times its modulation, then a 1x1
+    convolution with the tap's weights in the compute ``dtype``."""
+
+    def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
+        super().__init__()
+        self.offset = nn.Conv2d(in_ch, 18, 3, padding=1, bias=True)
+        self.mask = nn.Conv2d(in_ch, 9, 3, padding=1, bias=True)
+        self.conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        """:param x: (N, C_in, H, W) -> (N, C_out, H, W) in dtype"""
+        dt = self.dtype
+        N, _, H, W = x.shape
+        offset = conv_in(self.offset, x, dt).float()
+        mod = torch.sigmoid(conv_in(self.mask, x, dt).float())
+        xf = x.float()
+        ys = torch.arange(H, dtype=torch.float32, device=x.device)[:, None]
+        xs = torch.arange(W, dtype=torch.float32, device=x.device)[None, :]
+        weight = self.conv.weight.to(dt)
+        out = None
+        for k in range(9):
+            ky, kx = divmod(k, 3)
+            py = ys + (ky - 1) + offset[:, 2 * k]
+            px = xs + (kx - 1) + offset[:, 2 * k + 1]
+            grid = torch.stack([px * (2.0 / (W - 1)) - 1.0,
+                                py * (2.0 / (H - 1)) - 1.0], -1)
+            tap = F.grid_sample(xf, grid, mode="bilinear",
+                                padding_mode="zeros", align_corners=True)
+            term = F.conv2d((tap * mod[:, k, None]).to(dt),
+                            weight[:, :, ky, kx, None, None])
+            out = term if out is None else out + term
+        return out

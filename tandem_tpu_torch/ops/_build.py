@@ -46,6 +46,7 @@ SIGNATURES = {
     "tandem_bilinear_sample": [ctypes.c_char_p, _c_ptr],
     "tandem_warp_sample_grad": [ctypes.c_char_p, _c_ptr],
     "tandem_warp_variance": [ctypes.c_char_p, _c_ptr],
+    "tandem_warp_correlation": [ctypes.c_char_p, _c_ptr],
     "tandem_tsdf_integrate": [ctypes.c_char_p, _c_ptr],
     "tandem_tsdf_splat": [ctypes.c_char_p, _c_ptr],
     "tandem_tsdf_fill_holes": [ctypes.c_char_p, _c_ptr],

@@ -34,6 +34,16 @@ or written by the first view; on the card one launch of the same source
 volume and its square). The kernel rounds as the plain version does, so
 the two are equal bit for bit. It is an inference step: no gradient.
 
+Correlation: ``warp_correlation`` is the correlation cost volume's step for
+one source view (TransMVSNet's): the plane sweep's samples x of the view
+multiplied by the reference's features r at the same pixel and averaged
+over the channels, (1 / C) sum_c r_c x_c, one float32 value a (plane,
+pixel); on the card one launch of the same source
+(``tandem::warp_correlation``, whose CPU implementation is
+``warp_correlation_plain``: ``warp_sample_plain``'s volume times the
+reference, summed in the kernel's channel order). The two are equal bit for
+bit. An inference step: no gradient.
+
 Gradient: ``warp_sample`` is differentiable with respect to the image,
 through the op's registered autograd formula on either device: the
 backward is ``warp_sample_grad`` (on the card one launch of the
@@ -238,6 +248,9 @@ _GRAD_ARGS = struct.Struct("<4Q2q6ifi")
 # VarianceArgs: SweepArgs (its out the running sum), then the sum of
 # squares, first and a pad: 96 bytes.
 _VARIANCE_ARGS = struct.Struct(_SWEEP_ARGS.format + "Qii")
+# CorrelationArgs: SweepArgs (its out the float32 similarity), then the
+# reference's features: 88 bytes.
+_CORRELATION_ARGS = struct.Struct(_SWEEP_ARGS.format + "Q")
 
 
 def _check(name: str, img, floats, keep=None):
@@ -519,6 +532,110 @@ def _(img, ref_to_src, depth, vol_sum, vol_sq_sum, first, min_depth_thres):
     _check_variance(img, ref_to_src, depth, vol_sum, vol_sq_sum)
 
 
+def correlation_vec(img, ref) -> int:
+    """Channels a lane of the correlation kernel takes (``_vec`` of both
+    feature maps' types and alignments): the channel order of its sum."""
+    return _vec(img.shape[-1], img.element_size(), img.data_ptr(),
+                ref.data_ptr())
+
+
+def warp_correlation_plain(img, ref, ref_to_src, depth,
+                           min_depth_thres: float = 0.001, vec=None):
+    """The correlation step in torch ops: ``warp_sample_plain``'s volume x
+    times the reference r in float32, each lane's ``vec`` channels summed
+    in order, then the lanes' sums in order, over C: the kernel's
+    roundings in its order (``vec`` as ``correlation_vec`` gives it).
+
+    :return: (B, D, H, W) float32
+    """
+    C = img.shape[-1]
+    vec = correlation_vec(img, ref) if vec is None else vec
+    warped = warp_sample_plain(img, ref_to_src, depth, min_depth_thres)
+    prod = (warped.float() * ref.float()[:, None]).reshape(
+        *warped.shape[:4], C // vec, vec)
+    part = prod[..., 0]
+    for e in range(1, vec):
+        part = part + prod[..., e]
+    total = part[..., 0]
+    for lane in range(1, C // vec):
+        total = total + part[..., lane]
+    # a tensor divisor: a CUDA division by a Python number is a product
+    # with its rounded reciprocal
+    return total / torch.full((), float(C), device=total.device)
+
+
+def warp_correlation(img, ref, ref_to_src, depth,
+                     min_depth_thres: float = 0.001):
+    """One source view's step of the correlation cost volume: its
+    plane-sweep samples x (``warp_sample``'s) times the reference's
+    features r at the same pixel, averaged over the channels.
+
+    :param img: (B, H, W, C) float32 or bfloat16, contiguous: the source
+        view's features
+    :param ref: the reference view's features, of img's shape and type,
+        contiguous
+    :param ref_to_src, depth, min_depth_thres: as ``warp_sample``'s
+    :return: (B, D, H, W) float32
+    """
+    return torch.ops.tandem.warp_correlation(img, ref, ref_to_src, depth,
+                                             float(min_depth_thres))
+
+
+def _check_correlation(img, ref, ref_to_src, depth):
+    _check_sweep(img, ref_to_src, depth)
+    if ref.shape != img.shape or ref.dtype != img.dtype \
+            or ref.device != img.device or not ref.is_contiguous():
+        raise ValueError(f"warp_correlation: want contiguous {img.dtype} "
+                         f"reference features of shape {tuple(img.shape)} "
+                         f"on {img.device}, got {ref.dtype} "
+                         f"{tuple(ref.shape)} on {ref.device}")
+
+
+@torch.library.custom_op("tandem::warp_correlation", mutates_args=(),
+                         device_types="cpu")
+def _warp_correlation_op(img: torch.Tensor, ref: torch.Tensor,
+                         ref_to_src: torch.Tensor, depth: torch.Tensor,
+                         min_depth_thres: float) -> torch.Tensor:
+    """The op on the CPU: the plain version."""
+    _check_correlation(img, ref, ref_to_src, depth)
+    return warp_correlation_plain(img, ref, ref_to_src, depth,
+                                  min_depth_thres)
+
+
+@_warp_correlation_op.register_kernel("cuda")
+def _warp_correlation_cuda(img, ref, ref_to_src, depth, min_depth_thres):
+    """The op on the card: one launch of the correlation kernel, with the
+    forward's tiling (the vector width aligned to the reference too)."""
+    _check_correlation(img, ref, ref_to_src, depth)
+    B, H, W, C = img.shape
+    D = depth.shape[1]
+    if B * D > MAX_PLANES or _too_large(H, W, C):
+        raise ValueError(f"warp_correlation: {B} x {D} planes of {H} x {W} "
+                         f"x {C} exceed the kernel's grid or offsets")
+    out = torch.empty((B, D, H, W), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    misalign = (img.data_ptr() | ref.data_ptr()) % 16
+    vec, rows, planes = _plan(B, D, H, W, C, img.element_size(), misalign,
+                              img.get_device())
+    if C // vec > 32:
+        raise ValueError(f"warp_correlation: {C} channels take {C // vec} "
+                         "lanes a sample, more than a warp")
+    launch("tandem_warp_correlation", img.device, _CORRELATION_ARGS.pack(
+        img.data_ptr(), ref_to_src.data_ptr(), depth.data_ptr(),
+        out.data_ptr(), B, D, H, W, C, vec, rows, planes,
+        int(img.dtype == torch.bfloat16), min_depth_thres, ref.data_ptr()))
+    warp_correlation.launches += 1
+    return out
+
+
+@_warp_correlation_op.register_fake
+def _(img, ref, ref_to_src, depth, min_depth_thres):
+    _check_correlation(img, ref, ref_to_src, depth)
+    B, H, W, _ = img.shape
+    return img.new_empty((B, depth.shape[1], H, W), dtype=torch.float32)
+
+
 def bilinear_sample(img, px, py, keep=None):
     """Sample ``img`` at given pixel positions.
 
@@ -555,4 +672,5 @@ def bilinear_sample(img, px, py, keep=None):
 warp_sample.launches = 0
 warp_sample_grad.launches = 0
 warp_variance.launches = 0
+warp_correlation.launches = 0
 bilinear_sample.launches = 0

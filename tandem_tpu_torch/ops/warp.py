@@ -25,7 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from .bilinear_sample import sweep_positions, warp_sample, warp_variance
+from .bilinear_sample import (sweep_positions, warp_correlation, warp_sample,
+                              warp_variance)
 from .linalg import invert_pixel_projection
 
 
@@ -119,3 +120,24 @@ def plane_sweep_variance(src_features, ref_depth, sums=None, *, src_K,
     return warp_variance(src_features.contiguous(), mat,
                          ref_depth.to(torch.float32).contiguous(), sums,
                          min_depth_thres)
+
+
+def plane_sweep_correlation(src_features, ref_features, ref_depth, *, src_K,
+                            src_cam_to_world, ref_p2w,
+                            min_depth_thres: float = 0.001):
+    """One source view's step of the correlation cost volume:
+    ``plane_sweep_warp``'s warped features x, never held whole, times the
+    reference's features r at the same pixel and averaged over the
+    channels, (1 / C) sum_c r_c x_c (``ops/bilinear_sample.
+    warp_correlation``).
+
+    :param src_features, ref_features: (B, H, W, C) of one dtype
+    :param ref_depth: (B, D, H, W)
+    :param ref_p2w: ``ref_pixel_to_world`` of the reference
+    :return: (B, D, H, W) float32
+    """
+    mat = ref_to_src_matrix(src_K, src_cam_to_world, ref_p2w=ref_p2w)
+    return warp_correlation(src_features.contiguous(),
+                            ref_features.contiguous(), mat,
+                            ref_depth.to(torch.float32).contiguous(),
+                            min_depth_thres)

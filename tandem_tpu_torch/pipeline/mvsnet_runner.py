@@ -25,17 +25,20 @@ forward (``parallel/view_shard.py``), the counterpart of the JAX runner's
 
 The runner serves the model in its own dtype (``CvaMVSNet(dtype=...)``:
 float32, or bfloat16 as the JAX runtime deploys it); the depth and
-confidence it hands on are float32 in both.
+confidence it hands on are float32 in both. It serves any architecture
+of ``models/factory.py`` with ``Stage3Forward``'s contract (a unit's
+``model_config.json`` names it); the view-sharded forward serves
+CVA-MVSNet only.
 
 On the card (one device, no ``devices``) the runner serves the stage-3
 forward and the edge filter by replaying a CUDA graph of them
 (``GraphedStage3``): one graph launch in place of ~1,300 eager ones a
 keyframe, the same kernels in the same order on the same inputs. The
 wrappers' counts ``warp_sample.launches``, ``warp_variance.launches``,
-``deconv_bn_relu_add.launches``, ``edge_filter.calls`` and
-``edge_filter.launches`` count where the kernels launch: a capture
-launches none and adds nothing, each replay adds what the capture
-recorded.
+``warp_correlation.launches``, ``deconv_bn_relu_add.launches``,
+``edge_filter.calls`` and ``edge_filter.launches`` count where the kernels
+launch: a capture launches none and adds nothing, each replay adds what
+the capture recorded.
 
 Spans (``utils/timer.py``; the backend hands the runner its Timer):
 ``mvsnet_pack``, ``mvsnet_upload`` and ``mvsnet_dispatch`` (the enqueue of
@@ -47,7 +50,14 @@ Counters, on the card: ``mvsnet_graph_captures``, 1 a capture, and
 eagerly; ``warp_variance.launches``, the variance kernel's launches
 in a call that launches it (3 stages x the source views); and
 ``deconv.launches``, the decoder-step kernel's launches in a call that
-launches it (3 stages x 3 steps).
+launches it (3 stages x 3 steps); ``warp_correlation.launches``, the
+correlation kernel's launches in a call that launches it (TransMVSNet: 3
+stages x the source views); and, for a model with an FMT on the card
+while the timer records, ``fmt.device_ms``: the FMT's device time in the
+call, from a pair of CUDA events the model records around it (inside the
+CUDA graph, so each replay records them), read once the call has finished
+on the card (in ``get_result`` if it has, else at the next ``call_async``,
+after the backend's fusion has waited for it).
 """
 
 from __future__ import annotations
@@ -59,19 +69,25 @@ import torch
 
 from ..core.camera import stage_intrinsics_runtime
 from ..models import convert
-from ..models.cva_mvsnet import CvaMVSNet, Stage3Forward
+from ..models.cva_mvsnet import Stage3Forward
 from ..models.edge_filter import filter_edges
 from ..native_bridge import bgr_pack_u8
-from ..ops.bilinear_sample import warp_sample, warp_variance
+from ..ops.bilinear_sample import (warp_correlation, warp_sample,
+                                   warp_variance)
 from ..ops.deconv3d import deconv_bn_relu_add
 from ..ops.edge_kth import edge_filter
 from ..utils.timer import Timer
 
 
 class MvsnetRunner:
-    """Fixed-shape CVA-MVSNet inference with async dispatch."""
+    """Fixed-shape MVSNet inference with async dispatch."""
 
-    def __init__(self, model: CvaMVSNet, variables: dict, height: int,
+    # the model's FMT events on the card, and whether the last call's are
+    # still to be read into ``fmt.device_ms``
+    _fmt_events = None
+    _fmt_unread = False
+
+    def __init__(self, model, variables: dict, height: int,
                  width: int, view_num: int = 7, device="cuda",
                  devices=None):
         """:param variables: the JAX package's numpy parameter tree
@@ -86,9 +102,17 @@ class MvsnetRunner:
         self._start(devices[0] if devices else device, height, width,
                     view_num)
         model.load_state_dict(convert.flax_to_state_dict(
-            variables, view_aggregation=model.view_aggregation))
+            variables, view_aggregation=model.view_aggregation,
+            architecture=model.architecture))
         self.model = model.to(self.device).eval()
         self.dtype = model.dtype
+        if devices and model.architecture != "cva_mvsnet":
+            raise ValueError(f"the view-sharded forward serves CVA-MVSNet, "
+                             f"not {model.architecture}")
+        if self.device.type == "cuda" and hasattr(model, "fmt_events"):
+            self._fmt_events = model.fmt_events = tuple(
+                torch.cuda.Event(enable_timing=True, external=True)
+                for _ in range(2))
         if devices:
             from ..parallel import build_view_sharded_forward
             self._forward = _ShardedStage3(
@@ -161,6 +185,7 @@ class MvsnetRunner:
         """The stage-3 forward on the packed inputs: (filtered depth,
         filtered confidence, depth, confidence), each (1, H, W)."""
         variance_launches = warp_variance.launches
+        correlation_launches = warp_correlation.launches
         deconv_launches = deconv_bn_relu_add.launches
         with torch.no_grad():
             with self.timer.span("mvsnet_upload"):
@@ -177,10 +202,24 @@ class MvsnetRunner:
         if warp_variance.launches != variance_launches:
             self.timer.count("warp_variance.launches",
                              warp_variance.launches - variance_launches)
+        if warp_correlation.launches != correlation_launches:
+            self.timer.count("warp_correlation.launches",
+                             warp_correlation.launches
+                             - correlation_launches)
         if deconv_bn_relu_add.launches != deconv_launches:
             self.timer.count("deconv.launches",
                              deconv_bn_relu_add.launches - deconv_launches)
+        self._fmt_unread = (self._fmt_events is not None
+                            and self.timer.recording())
         return outputs
+
+    def _read_fmt(self):
+        """The counter ``fmt.device_ms`` of the last call, from the FMT's
+        events (the call has finished on the card, or is waited for)."""
+        start, end = self._fmt_events
+        end.synchronize()
+        self.timer.count("fmt.device_ms", start.elapsed_time(end))
+        self._fmt_unread = False
 
     def _device_inputs(self, image, Ks, c2w, depth_min, depth_max,
                        discard) -> tuple:
@@ -200,6 +239,8 @@ class MvsnetRunner:
                    ref_index: Optional[int] = None):
         assert self._ready, "CallAsync called before previous GetResult"
         self._ready = False
+        if self._fmt_unread:        # before a replay records them again
+            self._read_fmt()
         with self.timer.span("mvsnet_pack"):
             args = self.pack_inputs(bgrs, cam_to_worlds, K, ref_index)
         if self._stream is None:
@@ -231,6 +272,9 @@ class MvsnetRunner:
             result = {k: conv(x[0]) for k, x in zip(
                 ("depth", "confidence", "depth_dense", "confidence_dense"),
                 tensors)}
+            if self._fmt_unread and (self._event is None
+                                     or self._event.query()):
+                self._read_fmt()
         self._pending = None
         self._event = None
         self._ready = True
@@ -289,8 +333,8 @@ class GraphedStage3:
 
 # The wrappers' counts that the stage-3 forward moves: (function, attribute)
 _COUNTS = ((warp_sample, "launches"), (warp_variance, "launches"),
-           (deconv_bn_relu_add, "launches"), (edge_filter, "launches"),
-           (edge_filter, "calls"))
+           (warp_correlation, "launches"), (deconv_bn_relu_add, "launches"),
+           (edge_filter, "launches"), (edge_filter, "calls"))
 
 
 def _read_counts() -> list:

@@ -77,7 +77,8 @@ def _reference_state_dict(sd: Dict[str, torch.Tensor]):
     return out
 
 
-def load_any(path: str, state=None, view_aggregation: bool = True):
+def load_any(path: str, state=None, view_aggregation: bool = True,
+             architecture: str = "cva_mvsnet"):
     """Read weights of any format the port knows.
 
     :return: the restored ``state`` for a port checkpoint directory when a
@@ -94,7 +95,8 @@ def load_any(path: str, state=None, view_aggregation: bool = True):
             return load_checkpoint(path, state)
         return _read(path)["model"]
     if path.endswith(".pkl"):
-        return flax_to_state_dict(load_variables(path), view_aggregation)
+        return flax_to_state_dict(load_variables(path), view_aggregation,
+                                  architecture)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     if payload.get("format") == FORMAT:
         return payload["model"]
